@@ -6,20 +6,33 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     python3 chip_smoke.py
 
 1. Prints the torch and CUDA versions and the card's name and power limit.
-2. Builds the whole-solve LM PnP kernel (csrc/pnp_lm.cu) with nvcc.
-3. Kernel phase: the kernel against its plain torch version on the card,
+2. Builds the three kernels with nvcc, one process per source, in
+   parallel: K1 the whole-solve LM PnP (csrc/pnp_lm.cu), K2 the LK prep
+   (csrc/lk_prep.cu), K3 the LK iteration (csrc/lk_iter.cu).
+3. K1 phase: the kernel against its plain torch version on the card,
    over every loss × function_tol × (opt_f, opt_pp), points behind the
    camera, all points masked, N = 16384 and a batch of 8 solves, with the
    tolerances of tests/test_pnp_pallas.py; prints both times per solve.
-4. Main-path phase: a synthetic 1920×1080, f = 1800, 120-frame orbit clip
+4. LK kernel phase: K2 and K3 against their plain torch versions at every
+   level of one source frame of a 1920×1080 panning clip (config 1b's:
+   blurred noise panning (7, 4) px per frame), with its real GFTT corners
+   and its 8 skip targets; prints both times per call, the gate and status
+   agreement and the largest differences.
+5. Analyze phase: ``generate_optical_flow_database`` on 24 frames of that
+   clip with default options, a warm-up run and a timed run, each into a
+   fresh DB.  Checks corners on every frame, every skip pair, the flows of
+   skips ±1 and ±2 against the ground truth -s·(7, 4), the share of flows
+   kept at ±1, and that K2 and K3 launched once per level of every solve;
+   prints analyze frames/s.
+6. Tracking phase: a synthetic 1920×1080, f = 1800, 120-frame orbit clip
    over a 20,224-triangle sphere with 2048 keypoints per frame and 0.3 px
    flow noise, written to a flow DB, tracked through ``track_sequence``
    forward over 119 frames, backward over 60, and over 24 frames with free
-   focal length and principal point.  Checks that every solve launched the
-   kernel and that every pose lies within the ground-truth thresholds, and
-   holds the kernel against its plain version on solver inputs recorded
-   from a warm-up run of the same path.
-5. Prints the card, the kernels' JSON line and, last, ``{"ok": true, ...}``.
+   focal length and principal point.  Checks that every solve launched K1
+   and that every pose lies within the ground-truth thresholds, and holds
+   K1 against its plain version on solver inputs recorded from a warm-up
+   run of the same path.
+7. Prints the card, the kernels' JSON line and, last, ``{"ok": true, ...}``.
 
 Any failed check raises, so the script exits non-zero without the last line.
 It refuses to run without a CUDA device.
@@ -50,6 +63,15 @@ PP_ATOL = 6.0
 POSE_ATOL, POSE_ATOL_OPT = 5e-4, 1e-3
 RATIO_ATOL, COST_RTOL = 1e-3, 1e-3
 INTR_RTOL, INTR_ATOL = 2e-3, 1.0
+
+# K2 and K3 against their plain versions (tests/test_torch_cuda.py's).
+PATCH_ATOL, A_RTOL, GATE_AGREE = 1e-4, 1e-4, 0.999
+STATUS_AGREE, POS_ATOL, POS_SHARE = 0.99, 0.05, 0.999
+# Analyze against the ground truth of the panning clip.
+FLOW_MEDIAN_MAX = 0.05   # px, skips ±1 and ±2
+KEPT_MIN = 0.95          # share of corners whose ±1 flow is kept
+PAN_STEP = (7, 4)        # px per frame, config 1b
+PAN_FRAMES, PAN_SOURCE = 24, 8
 
 N_POINTS = 16384
 WIDTH, HEIGHT, FOCAL = 1920, 1080, 1800.0
@@ -215,7 +237,186 @@ def kernel_phase(device, n=N_POINTS, seed=0):
 
 
 # ---------------------------------------------------------------------------
-# Main-path phase
+# LK kernel phase (K2, K3) and analyze phase
+# ---------------------------------------------------------------------------
+
+
+def lk_kernel_phase(device, frames):
+    """K2 and K3 against their plain versions at every level of one source
+    frame and its 8 targets.  K3 gets the plain prep and, at each level, the
+    guesses of the kernel chain.  Returns the largest patch difference, the
+    largest level-0 position difference and the level-0 times (kernel,
+    plain) of K2 and K3."""
+    from polychase_tpu_torch.engine import lk
+    from polychase_tpu_torch.engine.gftt import good_features_to_track
+    from polychase_tpu_torch.engine.opticalflow import IMAGE_SKIPS
+    from polychase_tpu_torch.kernels.lk_iter import lk_iter_level
+    from polychase_tpu_torch.kernels.lk_prep import lk_prep_level
+
+    opts = lk.LKOptions()
+    win = opts.window_size
+    pts, _ = good_features_to_track(frames[PAN_SOURCE], device=device)
+    pts, _ = lk._spatial_sort(pts)
+    pts = torch.as_tensor(pts, device=device)
+    src = lk.prepare_pyramid(frames[PAN_SOURCE], opts, device=device)
+    tgts = [lk.prepare_pyramid(frames[PAN_SOURCE + s], opts, device=device)
+            for s in IMAGE_SKIPS]
+    levels, T, n = src.num_levels, len(tgts), pts.shape[0]
+    print(f"  source frame {PAN_SOURCE}: {n} corners, {T} targets, "
+          f"{levels} levels")
+    eps2 = float(opts.term_epsilon ** 2)
+    top = levels - 1
+    cur = (pts * (1.0 / (1 << top))).expand(T, n, 2).contiguous()
+    fails, patch_err, pos_err, times = [], 0.0, 0.0, {}
+    for lvl in range(top, -1, -1):
+        if lvl != top:
+            cur = cur * 2.0
+        img, dx, dy, (H, W) = src.levels[lvl]
+        p = pts * (1.0 / (1 << lvl))
+        kw = dict(win=win, H=H, W=W, min_eig_thr=opts.min_eigen_threshold)
+        got = lk_prep_level(img, dx, dy, p, **kw)
+        ref = lk.prep_level(img, dx, dy, p, **kw)
+        dp = max(float((a - b).abs().max()) for a, b in zip(got[:3], ref[:3]))
+        da = max(float(((a - b).abs() / b.abs().max()).max())
+                 for a, b in zip(got[3:6], ref[3:6]))
+        gate = float((got[7] == ref[7]).float().mean())
+        patch_err = max(patch_err, dp)
+        if dp > PATCH_ATOL or da > A_RTOL or gate < GATE_AGREE:
+            fails.append(f"K2 level {lvl}: |dpatch| {dp:.3g}, A rel {da:.3g},"
+                         f" gate agreement {gate:.5f}")
+        t_k2 = (event_ms(lambda: lk_prep_level(img, dx, dy, p, **kw), 20),
+                event_ms(lambda: lk.prep_level(img, dx, dy, p, **kw), 5))
+
+        imgs = torch.stack([t.levels[lvl][0] for t in tgts])
+        ikw = dict(win=win, H=H, W=W, max_iters=opts.term_max_iters,
+                   eps2=eps2, level_is_zero=(lvl == 0))
+        kout = lk_iter_level(imgs, *ref, cur, **ikw)
+        pout = lk.iter_level(imgs, *ref, cur, **ikw)
+        agree = float((kout[1] == pout[1]).float().mean())
+        both = kout[1] & pout[1] & ref[7]
+        dpos = (kout[0] - pout[0]).abs().amax(dim=-1)[both]
+        # A feature that does not converge within the iteration budget (near
+        # the border of a coarse level, or a pan beyond LK's basin) stops
+        # wherever the budget ends, and there last-bit differences (sum
+        # order, FMAs) move it: every level is held in share, and the
+        # level-0 output at skips ±1 and ±2, where the clip's flows lie in
+        # the basin, in full.
+        near = torch.tensor([abs(s) <= 2 for s in IMAGE_SKIPS],
+                            device=device)[:, None].expand_as(both)[both]
+        d_max = float(dpos.max())
+        d_near = float(dpos[near].max())
+        share = float((dpos <= POS_ATOL).float().mean())
+        if lvl == 0:
+            pos_err = d_max
+        if (agree < STATUS_AGREE or share < POS_SHARE
+                or (lvl == 0 and d_near > POS_ATOL)):
+            fails.append(f"K3 level {lvl}: status agreement {agree:.5f}, "
+                         f"share within {POS_ATOL} px {share:.5f}, max "
+                         f"|dpos| at ±1/±2 {d_near:.3g}")
+        t_k3 = (event_ms(lambda: lk_iter_level(imgs, *ref, cur, **ikw), 10),
+                event_ms(lambda: lk.iter_level(imgs, *ref, cur, **ikw), 3))
+        times[lvl] = (t_k2, t_k3)
+        print(f"  level {lvl} ({W}x{H}): K2 {t_k2[0]:.4f} ms (plain "
+              f"{t_k2[1]:.4f}), |dpatch| {dp:.3g}, A rel {da:.3g}, gate "
+              f"agreement {gate:.5f}; K3 {t_k3[0]:.4f} ms (plain "
+              f"{t_k3[1]:.4f}), status agreement {agree:.5f}, |dpos| "
+              f"within {POS_ATOL} px {share:.6f}, max {d_max:.3g} (at ±1/±2 "
+              f"{d_near:.3g}), kept {float(kout[1].float().mean()):.4f}")
+        cur = kout[0]
+    torch.cuda.synchronize()
+    if fails:
+        raise AssertionError("LK kernels vs plain:\n" + "\n".join(fails))
+    k2 = tuple(sum(t[0][i] for t in times.values()) for i in (0, 1))
+    k3 = tuple(sum(t[1][i] for t in times.values()) for i in (0, 1))
+    print(f"  one source frame, all levels: K2 {k2[0]:.4f} ms (plain "
+          f"{k2[1]:.4f}), K3 {k3[0]:.4f} ms (plain {k3[1]:.4f})")
+    return patch_err, pos_err, times[0]
+
+
+def analyze_phase(device, frames):
+    """Analyze the panning clip twice (warm-up, timed), each into a fresh
+    DB, and check the timed run against the ground truth.  Returns the K2
+    and K3 launch counts of the timed run and its frames/s."""
+    from polychase_tpu.io.database import Database
+    from polychase_tpu_torch.engine import lk
+    from polychase_tpu_torch.engine.opticalflow import (
+        IMAGE_SKIPS, VideoInfo, generate_optical_flow_database,
+    )
+    from polychase_tpu_torch.kernels import lk_iter, lk_prep
+
+    n = len(frames)
+    height, width = frames[0].shape
+    info = VideoInfo(width, height, 0, n)
+
+    def run(path):
+        t0 = time.perf_counter()
+        generate_optical_flow_database(info, lambda f: frames[f], None, path,
+                                       device=device)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as td:
+        warm = run(os.path.join(td, "warm.db"))
+        lk_prep.launches = lk_iter.launches = 0
+        path = os.path.join(td, "flow.db")
+        seconds = run(path)
+        launches = (lk_prep.launches, lk_iter.launches)
+        db = Database(path)
+        try:
+            kps = [db.read_keypoints(f) for f in range(n)]
+            flows = {(f, f + s): db.read_image_pair_flow(f, f + s)
+                     for f in range(n) for s in IMAGE_SKIPS
+                     if 0 <= f + s < n and db.image_pair_flow_exists(f, f + s)}
+        finally:
+            db.close()
+    fails = []
+    counts = [k.shape[0] for k in kps]
+    print(f"  clip: {width}x{height}, {n} frames, pan {PAN_STEP} px/frame; "
+          f"corners per frame {min(counts)}..{max(counts)}")
+    if min(counts) == 0:
+        fails.append("a frame has no corners")
+    want = {(f, f + s) for f in range(n) for s in IMAGE_SKIPS
+            if 0 <= f + s < n}
+    if set(flows) != want:
+        fails.append(f"{len(want - set(flows))} skip pairs missing")
+    for s in IMAGE_SKIPS:
+        errs, kept, total = [], 0, 0
+        for f in range(n):
+            fl = flows.get((f, f + s))
+            if fl is None:
+                continue
+            d = fl.tgt_kps - kps[f][fl.src_kps_indices]
+            errs.append(np.linalg.norm(d + s * np.array(PAN_STEP), axis=1))
+            kept += fl.src_kps_indices.size
+            total += kps[f].shape[0]
+        e = np.concatenate(errs)
+        med, share = float(np.median(e)), kept / max(total, 1)
+        checked = abs(s) <= 2
+        print(f"  skip {s:+d}: kept {share:.4f}, median |flow - truth| "
+              f"{med:.4g} px, within 0.1 px {float((e < 0.1).mean()):.4f}"
+              f"{'' if checked else '  (beyond the LK basin, not checked)'}")
+        if checked and med > FLOW_MEDIAN_MAX:
+            fails.append(f"skip {s}: median flow error {med:.3g} px")
+        if abs(s) == 1 and share < KEPT_MIN:
+            fails.append(f"skip {s}: only {share:.4f} of the flows kept")
+    levels = lk.num_pyramid_levels(height, width, lk.LKOptions())
+    solves = sum(1 for f in range(n) if any((f, f + s) in want
+                                            for s in IMAGE_SKIPS))
+    if launches != (levels * solves, levels * solves):
+        fails.append(f"K2/K3 launched {launches} times for {solves} solves "
+                     f"of {levels} levels")
+    if fails:
+        raise AssertionError("analyze:\n" + "\n".join(fails))
+    fps = n / seconds
+    print(f"  K2 / K3 launches on the main path: {launches[0]} / "
+          f"{launches[1]} (= {solves} solves x {levels} levels)")
+    print(f"  analyze: {n} frames in {seconds:.3f} s = {fps:.2f} frames/s "
+          f"(warm-up run {warm:.3f} s)")
+    return launches, fps
+
+
+# ---------------------------------------------------------------------------
+# Tracking phase
 # ---------------------------------------------------------------------------
 
 
@@ -396,25 +597,39 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
                          "on a GPU")
     from polychase_tpu_torch.backend import require_cuda
-    from polychase_tpu_torch.kernels import pnp_lm
+    from polychase_tpu_torch.kernels import build, lk_iter, lk_prep, pnp_lm
+    from polychase_tpu_torch.synthetic import panning_clip
 
     smi = nvidia_smi()
     print(f"card: {smi}")
     device = require_cuda()
 
-    print("build:")
-    lib = pnp_lm.load()
-    print(f"  {lib.path.name}: built in {lib.build_seconds:.2f} s")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}")
+    print("build (one nvcc per source, in parallel):")
+    t0 = time.perf_counter()
+    libs = build.load_all(["pnp_lm.cu", "lk_prep.cu", "lk_iter.cu"])
+    for mod in (pnp_lm, lk_prep, lk_iter):
+        mod.load()
+    for lib in libs:
+        print(f"  {lib.path.name}: nvcc {lib.build_seconds:.2f} s")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {line.strip()}")
+    print(f"  all built and loaded in {time.perf_counter() - t0:.2f} s")
 
-    print("kernel phase (K1 vs plain torch, on the card):")
+    print("K1 phase (K1 vs plain torch, on the card):")
     max_err, times = kernel_phase(device)
-    print("main-path phase (track_sequence on the card):")
+    frames = panning_clip(np.random.default_rng(0), PAN_FRAMES, WIDTH,
+                          HEIGHT, PAN_STEP)
+    print("LK kernel phase (K2, K3 vs plain torch, on the card):")
+    patch_err, pos_err, lk_times = lk_kernel_phase(device, frames)
+    print("analyze phase (generate_optical_flow_database on the card):")
+    lk_launches, analyze_fps = analyze_phase(device, frames)
+    print(f"analyze {analyze_fps:.2f} frames/s at 1920x1080 on {smi}")
+    print("tracking phase (track_sequence on the card):")
     launches, fps, path_err = main_path_phase(device)
     print(f"tracking {fps:.2f} frames/s at 1920x1080 on {smi}")
 
+    (k2_ms, k2_plain), (k3_ms, k3_plain) = lk_times
     kernels = [{
         "name": "pnp_lm",
         "route": "cuda",
@@ -424,6 +639,24 @@ def main() -> None:
         "max_abs_err": max(max_err, path_err),
         "ms": times[6][0],
         "plain_ms": times[6][1],
+    }, {
+        "name": "lk_prep",
+        "route": "cuda",
+        "source": "polychase_tpu_torch/csrc/lk_prep.cu",
+        "replaces": "polychase_tpu/kernels/lk_pallas.py:337",
+        "launches": lk_launches[0],
+        "max_abs_err": patch_err,
+        "ms": k2_ms,
+        "plain_ms": k2_plain,
+    }, {
+        "name": "lk_iter",
+        "route": "cuda",
+        "source": "polychase_tpu_torch/csrc/lk_iter.cu",
+        "replaces": "polychase_tpu/kernels/lk_pallas.py:496",
+        "launches": lk_launches[1],
+        "max_abs_err": pos_err,
+        "ms": k3_ms,
+        "plain_ms": k3_plain,
     }]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -35,3 +35,32 @@ def require_cuda() -> torch.device:
         raise RuntimeError("no CUDA device is available to this process")
     return torch.device("cuda", torch.cuda.current_device())
 
+
+class HostCopy:
+    """Device tensors on their way to the host.
+
+    On a CUDA device the copies go into pinned buffers with
+    ``non_blocking=True`` and one event is recorded behind them, so the
+    host runs on until :meth:`numpy` waits on that event alone.  CPU
+    tensors are already on the host.
+    """
+
+    def __init__(self, *tensors: torch.Tensor):
+        self.event = None
+        if tensors and tensors[0].device.type == "cuda":
+            bufs = []
+            for t in tensors:
+                b = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                b.copy_(t, non_blocking=True)
+                bufs.append(b)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(tensors[0].device))
+            tensors = tuple(bufs)
+        self._tensors = tensors
+
+    def numpy(self):
+        """The tensors as numpy arrays, once their copies have landed."""
+        if self.event is not None:
+            self.event.synchronize()
+        return tuple(t.numpy() for t in self._tensors)
+

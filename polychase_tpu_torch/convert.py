@@ -2,8 +2,9 @@
 
 Each function takes an object of the JAX package (a ``Mesh``,
 ``Intrinsics``, ``Pose``, ``CameraState``, ``CameraTrajectory``,
-``BundleOptions`` or ``SceneTransformations``) and reads its fields as numpy
-arrays, so this module never imports jax: anything with the same field names
+``BundleOptions``, ``SceneTransformations``, ``LKOptions``,
+``GFTTOptions``, ``VideoInfo`` or ``PyramidCache``) and reads its fields as
+numpy arrays, so this module never imports jax: anything with the same field names
 whose values ``numpy.asarray`` accepts will do.  The port has no weights;
 this is how the tests put both packages on the same state.
 """
@@ -15,6 +16,9 @@ import torch
 
 from .backend import as_device
 from .engine import camera as C
+from .engine import gftt as G
+from .engine import lk as L
+from .engine import opticalflow as O
 from .engine import pose as P
 from .engine.geometry import Mesh, SceneTransformations
 from .engine.levmarq import BundleOptions
@@ -74,3 +78,30 @@ def scene_transformations(s, *, device) -> SceneTransformations:
         view_matrix=_f32(s.view_matrix, device),
         intrinsics=intrinsics(s.intrinsics, device=device),
     )
+
+
+def lk_options(o) -> L.LKOptions:
+    return L.LKOptions(*(getattr(o, f) for f in L.LKOptions._fields))
+
+
+def gftt_options(o) -> G.GFTTOptions:
+    return G.GFTTOptions(*(getattr(o, f) for f in G.GFTTOptions._fields))
+
+
+def video_info(v) -> O.VideoInfo:
+    return O.VideoInfo(*(int(getattr(v, f)) for f in O.VideoInfo._fields))
+
+
+def pyramid(p, *, device) -> L.PyramidCache:
+    """A prepared pyramid of the reference's XLA flavor: the padded image,
+    dx and dy of each level and its (H, W).  The Pallas flavor's 16-px,
+    128-aligned padding is TPU layout and is refused."""
+    if getattr(p, "flavor", "xla") != "xla":
+        raise ValueError(f"pyramid flavor {p.flavor!r} is not the XLA one")
+    device = as_device(device)
+    levels = []
+    for img, dx, dy, shape in p.levels:
+        H, W = (int(v) for v in np.asarray(shape))
+        levels.append((_f32(img, device), _f32(dx, device), _f32(dy, device),
+                       (H, W)))
+    return L.PyramidCache(levels, int(p.num_levels), lk_options(p.opts))

@@ -54,33 +54,65 @@ class Library:
         self.build_log = log
 
 
-def load(source: str) -> Library:
-    """Build (if needed) and load ``csrc/<source>``; raises on failure."""
+def _artifact(source: str):
+    src = CSRC / source
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return src, BUILD_DIR / f"lib{src.stem}_{digest}.so"
+
+
+def load_all(sources) -> list:
+    """Build (if needed) and load ``csrc/<source>`` for each source; raises
+    on failure.  Missing libraries are compiled in parallel, one ``nvcc``
+    per source, all started together."""
     with _lock:
-        if source in _loaded:
-            return _loaded[source]
-        src = CSRC / source
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-        out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
-        log_path = out.with_suffix(".log")
-        seconds = 0.0
-        if not out.exists():
+        t0 = time.perf_counter()
+        todo = []
+        for source in sources:
+            if source in _loaded:
+                continue
+            src, out = _artifact(source)
+            if out.exists():
+                continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
             os.close(fd)
-            t0 = time.perf_counter()
-            proc = subprocess.run(
+            log = open(tmp + ".log", "w+")
+            proc = subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                capture_output=True, text=True,
+                stdout=log, stderr=subprocess.STDOUT, text=True,
             )
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
+            todo.append((source, src, out, tmp, log, proc))
+        seconds = {}
+        while len(seconds) < len(todo):
+            for source, *_, proc in todo:
+                if source not in seconds and proc.poll() is not None:
+                    seconds[source] = time.perf_counter() - t0
+            time.sleep(0.02)
+        failed = []
+        for source, src, out, tmp, log, proc in todo:
+            log.seek(0)
+            text = log.read()
+            log.close()
+            os.unlink(log.name)
             if proc.returncode != 0:
                 os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed on {src}:\n{log}")
-            log_path.write_text(log)
+                failed.append(f"nvcc failed on {src}:\n{text}")
+                continue
+            out.with_suffix(".log").write_text(text)
             os.replace(tmp, out)
-        log = log_path.read_text() if log_path.exists() else ""
-        lib = Library(ctypes.CDLL(str(out)), out, seconds, log)
-        _loaded[source] = lib
-        return lib
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for source in sources:
+            if source in _loaded:
+                continue
+            _, out = _artifact(source)
+            log_path = out.with_suffix(".log")
+            log = log_path.read_text() if log_path.exists() else ""
+            _loaded[source] = Library(ctypes.CDLL(str(out)), out,
+                                      seconds.get(source, 0.0), log)
+        return [_loaded[source] for source in sources]
+
+
+def load(source: str) -> Library:
+    """Build (if needed) and load ``csrc/<source>``; raises on failure."""
+    return load_all([source])[0]

@@ -1,4 +1,5 @@
-"""A synthetic orbit clip and its flow database, without JAX.
+"""Synthetic clips, without JAX: an orbit clip with its flow database, and
+a panning clip of blurred noise for analyze.
 
 The scene is the tracking configuration of ``benchmarks/run_all.py``
 (``make_scene`` / ``build_synth_db``): a UV sphere at the origin, an OpenCV
@@ -117,3 +118,44 @@ def build_flow_db(db_path: str, mesh: Mesh, focal: float, width: int,
                     )
     finally:
         db.close()
+
+
+def _gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:
+    """Separable Gaussian blur with reflect-101 borders, as
+    ``cv2.GaussianBlur(img, (0, 0), sigma)`` does it on float32 (kernel
+    size ``round(8·sigma + 1) | 1``)."""
+    r = int(round(sigma * 8 + 1)) | 1
+    r //= 2
+    x = np.arange(-r, r + 1, dtype=np.float64)
+    k = np.exp(-x * x / (2 * sigma * sigma))
+    k /= k.sum()
+    out = img.astype(np.float64)
+    for axis in (0, 1):
+        pad = [(0, 0), (0, 0)]
+        pad[axis] = (r, r)
+        p = np.pad(out, pad, mode="reflect")
+        n = out.shape[axis]
+        acc = np.zeros_like(out)
+        for i, c in enumerate(k):
+            sl = [slice(None), slice(None)]
+            sl[axis] = slice(i, i + n)
+            acc += c * p[tuple(sl)]
+        out = acc
+    return out
+
+
+def panning_clip(rng: np.random.Generator, n_frames: int, width: int,
+                 height: int, step=(7, 4)):
+    """Config 1b's clip (``benchmarks/run_all.py:183-216``) without cv2:
+    uniform noise blurred with sigma 1.5, rescaled to uint8, and cropped
+    with a pan of ``step`` = (x, y) px per frame.  The content of frame i
+    appears in frame i + s shifted by -s·step.  Returns a list of
+    (height, width) uint8 frames."""
+    sx, sy = step
+    big = rng.integers(0, 255, (height + sy * n_frames + 8,
+                                width + sx * n_frames + 8)).astype(np.float32)
+    big = _gaussian_blur(big, 1.5).astype(np.float32)
+    big = (255 * (big - big.min()) / np.ptp(big)).astype(np.uint8)
+    return [np.ascontiguousarray(big[sy * t:sy * t + height,
+                                     sx * t:sx * t + width])
+            for t in range(n_frames)]

@@ -1,4 +1,5 @@
-"""K1 (csrc/pnp_lm.cu) against its plain torch version on a CUDA card.
+"""K1 (csrc/pnp_lm.cu), K2 (csrc/lk_prep.cu) and K3 (csrc/lk_iter.cu)
+against their plain torch versions on a CUDA card.
 
 These tests need the card and skip elsewhere.  The file imports no jax, so
 it runs on a machine without it:
@@ -10,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from polychase_tpu_torch.engine import lk
+from polychase_tpu_torch.engine.gftt import good_features_to_track
 from polychase_tpu_torch.engine.levmarq import BundleOptions
 from polychase_tpu_torch.engine.pnp import solve_arrays
 from polychase_tpu_torch.engine.pose import quat_to_mat_np
-from polychase_tpu_torch.kernels import pnp_lm
+from polychase_tpu_torch.kernels import lk_iter, lk_prep, pnp_lm
+from polychase_tpu_torch.synthetic import panning_clip
 
 pytestmark = pytest.mark.cuda
 
@@ -82,3 +86,113 @@ def test_kernel_rejects_bad_shapes(card):
     with pytest.raises(ValueError):
         pnp_lm.solve_arrays_lm(X, x, w, m, p.cpu(), opt_f=False,
                                opt_pp=False, opts=opts)
+
+
+# ---------------------------------------------------------------------------
+# K2 and K3
+# ---------------------------------------------------------------------------
+
+OPTS = lk.LKOptions()
+WIN = OPTS.window_size
+
+
+@pytest.fixture
+def lk_case(card):
+    """A 640×480 panning clip: frame 4's corners, its pyramid and the
+    pyramids of four targets (skips -2, -1, 1, 2), on the card."""
+    frames = panning_clip(np.random.default_rng(0), 7, 640, 480)
+    pts, _ = good_features_to_track(frames[4], device=card)
+    pts, _ = lk._spatial_sort(pts)
+    src = lk.prepare_pyramid(frames[4], OPTS, device=card)
+    tgts = [lk.prepare_pyramid(frames[f], OPTS, device=card)
+            for f in (2, 3, 5, 6)]
+    return torch.as_tensor(pts, device=card), src, tgts
+
+
+def test_lk_prep_matches_plain(lk_case):
+    """Patches atol 1e-4 (the blend is not contracted into FMAs), A terms
+    rtol 1e-4 (sum order), the gate equal on ≥ 99.9% of features."""
+    pts, src, _ = lk_case
+    for lvl in range(src.num_levels):
+        img, dx, dy, (H, W) = src.levels[lvl]
+        p = pts * (1.0 / (1 << lvl))
+        kw = dict(win=WIN, H=H, W=W, min_eig_thr=OPTS.min_eigen_threshold)
+        before = lk_prep.launches
+        got = lk_prep.lk_prep_level(img, dx, dy, p, **kw)
+        assert lk_prep.launches == before + 1
+        ref = lk.prep_level(img, dx, dy, p, **kw)
+        for a, b in zip(got[:3], ref[:3]):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+        for a, b in zip(got[3:6], ref[3:6]):
+            torch.testing.assert_close(a, b, rtol=1e-4,
+                                       atol=1e-4 * float(b.abs().max()))
+        assert (got[7] == ref[7]).float().mean() >= 0.999
+
+
+def test_lk_iter_matches_plain(lk_case):
+    """Status ≥ 99% equal at every level of the coarse-to-fine chain (each
+    level fed the kernel chain's guesses); 0.05 px on features both keep,
+    for every one at level 0 and for 99.9% above it (a feature that does
+    not converge near a coarse level's border stops where the budget ends,
+    which last-bit differences move)."""
+    pts, src, tgts = lk_case
+    levels = src.num_levels
+    eps2 = OPTS.term_epsilon ** 2
+    top = levels - 1
+    cur = (pts * (1.0 / (1 << top))).expand(len(tgts), *pts.shape)
+    cur = cur.contiguous()
+    for lvl in range(top, -1, -1):
+        if lvl != top:
+            cur = cur * 2.0
+        img, dx, dy, (H, W) = src.levels[lvl]
+        prep = lk.prep_level(img, dx, dy, pts * (1.0 / (1 << lvl)), win=WIN,
+                             H=H, W=W, min_eig_thr=OPTS.min_eigen_threshold)
+        imgs = torch.stack([t.levels[lvl][0] for t in tgts])
+        kw = dict(win=WIN, H=H, W=W, max_iters=OPTS.term_max_iters,
+                  eps2=eps2, level_is_zero=(lvl == 0))
+        before = lk_iter.launches
+        got = lk_iter.lk_iter_level(imgs, *prep, cur, **kw)
+        assert lk_iter.launches == before + 1
+        ref = lk.iter_level(imgs, *prep, cur, **kw)
+        assert (got[1] == ref[1]).float().mean() >= 0.99
+        both = got[1] & ref[1] & prep[7]
+        dpos = (got[0] - ref[0]).abs().amax(dim=-1)[both]
+        assert float((dpos <= 0.05).float().mean()) >= 0.999
+        if lvl == 0:
+            assert float(dpos.max()) <= 0.05
+        if lvl == 0:
+            torch.testing.assert_close(got[2][both], ref[2][both], rtol=0,
+                                       atol=1e-2)
+        cur = got[0]
+
+
+def test_lk_launch_counts_follow_the_levels(lk_case):
+    pts, src, tgts = lk_case
+    p0, i0 = lk_prep.launches, lk_iter.launches
+    nxt, st, err = lk.calc_optical_flow_multi(src, tgts, pts.cpu().numpy())
+    assert (lk_prep.launches - p0, lk_iter.launches - i0) == (
+        src.num_levels, src.num_levels)
+    assert nxt.shape == (4, pts.shape[0], 2) and st.mean() > 0.9
+
+
+def test_lk_kernels_reject_bad_inputs(lk_case):
+    pts, src, tgts = lk_case
+    img, dx, dy, (H, W) = src.levels[0]
+    kw = dict(win=WIN, H=H, W=W, min_eig_thr=1e-4)
+    with pytest.raises(ValueError):
+        lk_prep.lk_prep_level(img[:-1], dx, dy, pts, **kw)
+    with pytest.raises(ValueError):
+        lk_prep.lk_prep_level(img.cpu(), dx, dy, pts, **kw)
+    with pytest.raises(ValueError):
+        lk_prep.lk_prep_level(img, dx, dy, pts[:, :1], **kw)
+    prep = lk_prep.lk_prep_level(img, dx, dy, pts, **kw)
+    imgs = torch.stack([t.levels[0][0] for t in tgts])
+    cur = pts.expand(4, *pts.shape).contiguous()
+    ikw = dict(win=WIN, H=H, W=W, max_iters=30, eps2=1e-4,
+               level_is_zero=True)
+    with pytest.raises(ValueError):
+        lk_iter.lk_iter_level(imgs, *prep, cur[:3], **ikw)
+    with pytest.raises(ValueError):
+        lk_iter.lk_iter_level(imgs.cpu(), *prep, cur, **ikw)
+    with pytest.raises(ValueError):
+        lk_iter.lk_iter_level(imgs, *prep[:7], prep[7].float(), cur, **ikw)

@@ -1,5 +1,6 @@
-"""The port runs with jax unimportable: a tiny track in a fresh process
-whose import system refuses ``jax`` and ``jaxlib``."""
+"""The port runs with jax unimportable: a tiny track and a tiny analyze,
+each in a fresh process whose import system refuses ``jax`` and
+``jaxlib``."""
 
 import os
 import subprocess
@@ -8,7 +9,7 @@ import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SCRIPT = textwrap.dedent(
+REFUSE_JAX = textwrap.dedent(
     """
     import importlib.abc
     import os
@@ -22,7 +23,11 @@ SCRIPT = textwrap.dedent(
             return None
 
     sys.meta_path.insert(0, RefuseJax())
+    """
+)
 
+SCRIPT = REFUSE_JAX + textwrap.dedent(
+    """
     import numpy as np
     import torch
 
@@ -66,12 +71,62 @@ SCRIPT = textwrap.dedent(
 )
 
 
-def test_port_runs_without_jax():
+ANALYZE = REFUSE_JAX + textwrap.dedent(
+    """
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+
+    from polychase_tpu.io.database import Database
+    from polychase_tpu_torch.engine.opticalflow import (
+        IMAGE_SKIPS, VideoInfo, generate_optical_flow_database,
+    )
+    from polychase_tpu_torch.synthetic import panning_clip
+
+    frames = panning_clip(np.random.default_rng(0), 6, 128, 96, (2, 1))
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "flow.db")
+        generate_optical_flow_database(
+            VideoInfo(128, 96, 0, 6), lambda f: frames[f], None, path,
+            device=torch.device("cpu"))
+        db = Database(path)
+        pairs = 0
+        for f in range(6):
+            kps = db.read_keypoints(f)
+            assert kps.shape[0] > 50, f
+            for s in IMAGE_SKIPS:
+                if 0 <= f + s < 6:
+                    fl = db.read_image_pair_flow(f, f + s)
+                    pairs += 1
+                    if abs(s) == 1:
+                        d = fl.tgt_kps - kps[fl.src_kps_indices]
+                        med = np.median(d, axis=0)
+                        assert np.abs(med + s * np.array([2, 1])).max() < 0.05
+        db.close()
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
+    assert not leaked, leaked
+    print("analyzed", pairs, "pairs without jax")
+    """
+)
+
+
+def _run(script):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
-    proc = subprocess.run(
-        [sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+    return subprocess.run(
+        [sys.executable, "-c", script], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=300,
     )
+
+
+def test_port_runs_without_jax():
+    proc = _run(SCRIPT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "tracked 7 frames without jax" in proc.stdout
+
+
+def test_port_analyzes_without_jax():
+    proc = _run(ANALYZE)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "analyzed 22 pairs without jax" in proc.stdout
