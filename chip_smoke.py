@@ -32,7 +32,25 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    and that every pose lies within the ground-truth thresholds, and holds
    K1 against its plain version on solver inputs recorded from a warm-up
    run of the same path.
-7. Prints the card, the kernels' JSON line and, last, ``{"ok": true, ...}``.
+7. Refine phase (config 4, ``benchmarks/run_all.py:348-398``): a 250-frame
+   1920×1080, f = 1800 orbit clip over the 24×32 sphere (1,472 triangles)
+   with 128 keypoints per frame and 0.3 px flow noise, refined on the card
+   from translations with N(0, 0.005) noise by ``refine_trajectory`` with
+   the focal length free, Cauchy loss and 30 iterations at most: a warm-up
+   run, a timed run (gates: the cost falls, the anchors are untouched to the
+   bit, the median translation error falls, every rotation error ≤ 2e-3
+   rad) and a run under ``torch.profiler`` for the device time of the prim
+   refresh ray cast, the normal equations, the solve and the cost, and the
+   device busy share.  One normal system of the problem (P = 2250, nb = 32,
+   bs = 72) is solved by the banded and the dense solve, timed, and the two
+   steps held within 1e-3 of each other.
+8. Pin phase (config 2, ``run_all.py:219-265``): 20 timed 8-pin Camera-type
+   drags and one drag of 16,384 surface points; every drag above
+   ``pinmode.HOST_PIN_MAX`` points must launch K1 once, the big drag must
+   agree with the host route within 1e-4, and K1 is held against its plain
+   version on the drags' solver inputs; then the table of host against
+   device route times from which the pin crossover was set.
+9. Prints the card, the kernels' JSON line and, last, ``{"ok": true, ...}``.
 
 Any failed check raises, so the script exits non-zero without the last line.
 It refuses to run without a CUDA device.
@@ -77,6 +95,16 @@ N_POINTS = 16384
 WIDTH, HEIGHT, FOCAL = 1920, 1080, 1800.0
 N_FRAMES, KEYPOINTS, NOISE_PX = 120, 2048, 0.3
 SPHERE = (80, 128)  # 20,224 triangles
+
+# Refine, config 4.
+REFINE_FRAMES, REFINE_KEYPOINTS = 250, 128
+REFINE_SPHERE = (24, 32)  # 1,472 triangles
+REFINE_ITERS, REFINE_T_SIGMA = 30, 0.005
+BAND_REL_MAX = 1e-3       # banded vs dense step, relative to the largest
+REFINE_LABELS = ("refine.raycast", "refine.normal_equations", "refine.solve",
+                 "refine.cost", "refine.step")
+# Pin mode, config 2.
+PIN_REPS, PIN_BIG, PIN_ROUTE_ATOL = 20, 16384, 1e-4
 
 
 def nvidia_smi() -> str:
@@ -591,6 +619,235 @@ def main_path_phase(device, *, n_frames=N_FRAMES, keypoints=KEYPOINTS,
     return launches, fps, path_err
 
 
+# ---------------------------------------------------------------------------
+# Refine phase
+# ---------------------------------------------------------------------------
+
+
+def profile_split(fn, device):
+    """Run ``fn`` under ``torch.profiler``; returns the host-clock seconds,
+    the device time of each refine label (ms), the whole device time (ms)
+    and the busy share.  Each kernel counts once, under the op that
+    launched it; a label's time is that of the kernels under it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    busy_us = sum(e.self_device_time_total for e in cpu)
+    split = {lbl: sum(e.device_time_total for e in cpu if e.name == lbl) / 1e3
+             for lbl in REFINE_LABELS}
+    return wall, split, busy_us / 1e3, busy_us / 1e6 / wall
+
+
+def band_solve_check(device, db_path, traj, mesh):
+    """One normal system of the problem at ``traj``, solved banded and
+    dense: returns (nb, bs), both times (ms, CUDA events) and the relative
+    difference of the two steps."""
+    from polychase_tpu.io.database import Database
+    from polychase_tpu_torch.engine import refiner as R
+    from polychase_tpu_torch.engine.levmarq import CAUCHY
+
+    db = Database(db_path)
+    try:
+        data = R.build_refiner_data(db, traj, mesh, np.eye(4), device=device)
+    finally:
+        db.close()
+    params = R.traj_to_params(traj, device=device)
+    eye = torch.eye(4, device=device)
+    prims = R.refresh_prims(params, data, mesh, eye)
+    JtJ, Jtr = R.build_normal_equations(
+        params, data, prims, mesh.triangle_corners(), eye, eye, 1.0,
+        loss_type=CAUCHY, opt_f=True, opt_pp=False, ppc=9)
+    band = R.compute_band(data, traj.count, 9)
+    if not band:
+        raise AssertionError("the refine problem did not take the band")
+    lam = 1e-5
+
+    def banded():
+        return R.solve_step(JtJ, Jtr, lam, band)
+
+    def dense():
+        return R.solve_step(JtJ, Jtr, lam, ())
+
+    sb, okb = banded()
+    sd, okd = dense()
+    if not (bool(okb) and bool(okd)):
+        raise AssertionError("a solve of the refine system failed")
+    rel = float((sb - sd).abs().max() / sd.abs().max())
+    return band, JtJ.shape[0], event_ms(banded, 10), event_ms(dense, 10), rel
+
+
+def refine_phase(device, *, n_frames=REFINE_FRAMES,
+                 keypoints=REFINE_KEYPOINTS, sphere=REFINE_SPHERE, seed=2):
+    """Config 4 on the card.  Returns the timed run's wall seconds and
+    iteration count."""
+    from polychase_tpu_torch.engine.camera import OPENCV, Intrinsics
+    from polychase_tpu_torch.engine.geometry import Mesh
+    from polychase_tpu_torch.engine.levmarq import CAUCHY, BundleOptions
+    from polychase_tpu_torch.engine.refiner import refine_trajectory
+    from polychase_tpu_torch.synthetic import (
+        build_flow_db, noisy_trajectory, orbit_poses, uv_sphere,
+    )
+
+    rng = np.random.default_rng(seed)
+    verts, tris = uv_sphere(*sphere)
+    mesh = Mesh.create(verts, tris, device=device)
+    intr = Intrinsics.create(FOCAL, FOCAL, WIDTH / 2, HEIGHT / 2, 1.0, WIDTH,
+                             HEIGHT, OPENCV, device=device)
+    poses = orbit_poses(n_frames)
+    opts = BundleOptions(loss_type=CAUCHY, loss_scale=1.0,
+                         max_iterations=REFINE_ITERS)
+    print(f"  clip: {WIDTH}x{HEIGHT}, f={FOCAL:g}, {n_frames} frames, "
+          f"{len(tris)} triangles, {keypoints} keypoints/frame, "
+          f"{NOISE_PX} px noise; translations noised by N(0, "
+          f"{REFINE_T_SIGMA})")
+
+    def t_errs(traj):
+        return np.array([np.linalg.norm(traj.get(i).pose.t.numpy()
+                                        - poses[i][1])
+                         for i in range(n_frames)])
+
+    with tempfile.TemporaryDirectory() as td:
+        db_path = os.path.join(td, "flow.db")
+        build_flow_db(db_path, mesh, FOCAL, WIDTH, HEIGHT, poses, rng,
+                      keypoints, NOISE_PX)
+
+        def run(traj, callback=None):
+            t0 = time.perf_counter()
+            refine_trajectory(db_path, traj, np.eye(4, dtype=np.float32),
+                              mesh, optimize_focal_length=True,
+                              callback=callback, bundle_opts=opts,
+                              device=device)
+            torch.cuda.synchronize(device)
+            return time.perf_counter() - t0
+
+        warm = run(noisy_trajectory(poses, intr, rng, REFINE_T_SIGMA))
+        traj = noisy_trajectory(poses, intr, rng, REFINE_T_SIGMA)
+        band = band_solve_check(device, db_path, traj, mesh)
+        ends = [(traj.get(i).pose.q.numpy().copy(),
+                 traj.get(i).pose.t.numpy().copy(),
+                 float(traj.get(i).intrinsics.fy)) for i in (0, n_frames - 1)]
+        before = t_errs(traj)
+        updates = []
+        wall = run(traj, lambda u: updates.append(u) or True)
+        split = profile_split(
+            lambda: run(noisy_trajectory(poses, intr, rng, REFINE_T_SIGMA)),
+            device)
+
+    fails = []
+    stats = updates[-1].stats
+    iters = int(stats.iterations)
+    after = t_errs(traj)
+    rot = max(quat_err(traj.get(i).pose.q.numpy(), poses[i][0])
+              for i in range(n_frames))
+    focal = np.array([float(traj.get(i).intrinsics.fy)
+                      for i in range(n_frames)])
+    print(f"  refine: {iters} iterations in {wall:.4f} s (warm-up run "
+          f"{warm:.4f} s); cost {float(stats.initial_cost):.4f} -> "
+          f"{float(stats.cost):.4f}; median t err {np.median(before):.3g} -> "
+          f"{np.median(after):.3g}, max {before.max():.3g} -> "
+          f"{after.max():.3g}; max rot err {rot:.3g} rad; max focal err "
+          f"{np.abs(focal / FOCAL - 1).max():.3g} (rel)")
+    if not float(stats.cost) < float(stats.initial_cost):
+        fails.append("the cost did not fall")
+    for (q0, t0, f0), i in zip(ends, (0, n_frames - 1)):
+        s = traj.get(i)
+        if not (np.array_equal(s.pose.q.numpy(), q0)
+                and np.array_equal(s.pose.t.numpy(), t0)
+                and float(s.intrinsics.fy) == f0):
+            fails.append(f"anchor frame {i} moved")
+    if not np.median(after) < np.median(before):
+        fails.append("the median translation error did not fall")
+    if rot > ROT_ERR_MAX:
+        fails.append(f"rotation error {rot:.3g} > {ROT_ERR_MAX}")
+    (nb, bs), n0, band_ms, dense_ms, rel = band
+    print(f"  one normal system (P = {n0}, nb = {nb}, bs = {bs}): banded "
+          f"{band_ms:.4f} ms, dense {dense_ms:.4f} ms, steps differ by "
+          f"{rel:.3g} (rel)")
+    if rel > BAND_REL_MAX:
+        fails.append(f"banded and dense steps differ by {rel:.3g}")
+    pwall, labels, busy_ms, busy = split
+    print(f"  profiled run: {pwall:.4f} s, device time {busy_ms:.3f} ms, "
+          f"busy share {busy:.4f}; device ms by stage: "
+          + ", ".join(f"{k.split('.')[1]} {v:.3f}" for k, v in labels.items())
+          + f", other {busy_ms - sum(labels.values()):.3f}")
+    if fails:
+        raise AssertionError("refine:\n" + "\n".join(fails))
+    return wall, iters
+
+
+# ---------------------------------------------------------------------------
+# Pin phase
+# ---------------------------------------------------------------------------
+
+
+def pin_phase(device):
+    """Config 2's drags.  Returns the 8-pin ms per drag, K1's launches on
+    the main path (the 20 drags and the 16,384-point one), and the largest
+    pose difference of K1 against its plain version on that drag's
+    inputs."""
+    from polychase_tpu_torch import crossover
+    from polychase_tpu_torch.engine import pinmode
+    from polychase_tpu_torch.kernels import pnp_lm
+
+    pins, scene = crossover.pin_scene(device, 8)
+    big, _ = crossover.pin_scene(device, PIN_BIG, seed=1)
+    if len(pins) != 8 or len(big) != PIN_BIG:
+        raise AssertionError(f"{len(pins)} and {len(big)} pins hit the mesh")
+    drag = crossover.pin_drag
+    for k in range(2):
+        drag(pins, scene, k, device)
+    inputs = []
+    real = pnp_lm.solve_arrays_lm
+
+    def record(*args, **kw):
+        inputs.append((args, kw))
+        return real(*args, **kw)
+
+    on_device = len(pins) > pinmode.HOST_PIN_MAX
+    pnp_lm.launches = 0
+    pnp_lm.solve_arrays_lm = record
+    try:
+        t0 = time.perf_counter()
+        for k in range(PIN_REPS):
+            drag(pins, scene, k % 5, device)
+        ms = (time.perf_counter() - t0) * 1e3 / PIN_REPS
+        out_dev = drag(big, scene, 0, device)
+    finally:
+        pnp_lm.solve_arrays_lm = real
+    launches = pnp_lm.launches
+    saved = pinmode.HOST_PIN_MAX
+    pinmode.HOST_PIN_MAX = 1 << 30
+    try:
+        out_host = drag(big, scene, 0, device)
+    finally:
+        pinmode.HOST_PIN_MAX = saved
+    diff = float(np.abs(out_dev.view_matrix.numpy()
+                        - out_host.view_matrix.numpy()).max())
+    want = PIN_REPS * on_device + 1
+    print(f"  8-pin drag: {ms:.4f} ms per solve ({PIN_REPS} drags, "
+          f"{'device' if on_device else 'host'} route); {PIN_BIG}-point "
+          f"drag: |view device - view host| {diff:.3g}; K1 launches on the "
+          f"main path {launches} (= {want} drags on the device route)")
+    if launches != want:
+        raise AssertionError(f"K1 launched {launches} times for {want} "
+                             f"device-route drags")
+    if diff > PIN_ROUTE_ATOL:
+        raise AssertionError(f"device and host routes differ by {diff:.3g}")
+    path_err = main_path_inputs_check(inputs)
+    print(f"  route table (ms per drag; HOST_PIN_MAX = "
+          f"{pinmode.HOST_PIN_MAX}):")
+    for n, h_ms, d_ms in crossover.pin_route_table(device):
+        print(f"    {n:6d} points: host {h_ms:.4f}, device {d_ms:.4f}")
+    return ms, launches, path_err
+
+
 def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     if not torch.cuda.is_available():
@@ -628,6 +885,13 @@ def main() -> None:
     print("tracking phase (track_sequence on the card):")
     launches, fps, path_err = main_path_phase(device)
     print(f"tracking {fps:.2f} frames/s at 1920x1080 on {smi}")
+    print("refine phase (refine_trajectory, config 4, on the card):")
+    refine_s, refine_iters = refine_phase(device)
+    print(f"refine {refine_s:.4f} s, {refine_iters} iterations, 250 frames "
+          f"on {smi}")
+    print("pin phase (find_transformation, config 2):")
+    pin_ms, pin_launches, pin_err = pin_phase(device)
+    print(f"pin drag {pin_ms:.4f} ms per 8-pin solve on {smi}")
 
     (k2_ms, k2_plain), (k3_ms, k3_plain) = lk_times
     kernels = [{
@@ -635,8 +899,8 @@ def main() -> None:
         "route": "cuda",
         "source": "polychase_tpu_torch/csrc/pnp_lm.cu",
         "replaces": "polychase_tpu/kernels/pnp_pallas.py:183",
-        "launches": launches,
-        "max_abs_err": max(max_err, path_err),
+        "launches": launches + pin_launches,
+        "max_abs_err": max(max_err, path_err, pin_err),
         "ms": times[6][0],
         "plain_ms": times[6][1],
     }, {

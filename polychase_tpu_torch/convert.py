@@ -3,9 +3,10 @@
 Each function takes an object of the JAX package (a ``Mesh``,
 ``Intrinsics``, ``Pose``, ``CameraState``, ``CameraTrajectory``,
 ``BundleOptions``, ``SceneTransformations``, ``LKOptions``,
-``GFTTOptions``, ``VideoInfo`` or ``PyramidCache``) and reads its fields as
-numpy arrays, so this module never imports jax: anything with the same field names
-whose values ``numpy.asarray`` accepts will do.  The port has no weights;
+``GFTTOptions``, ``VideoInfo``, ``PyramidCache``, ``PinUpdate``,
+``RefinerData`` or ``TrajParams``) and reads its fields as numpy arrays,
+so this module never imports jax: anything with the same field names whose
+values ``numpy.asarray`` accepts will do.  The port has no weights;
 this is how the tests put both packages on the same state.
 """
 
@@ -20,8 +21,10 @@ from .engine import gftt as G
 from .engine import lk as L
 from .engine import opticalflow as O
 from .engine import pose as P
+from .engine import refiner as R
 from .engine.geometry import Mesh, SceneTransformations
 from .engine.levmarq import BundleOptions
+from .engine.pinmode import PinUpdate
 from .engine.pnp import normalize_bundle_opts
 from .engine.trajectory import CameraTrajectory
 
@@ -90,6 +93,60 @@ def gftt_options(o) -> G.GFTTOptions:
 
 def video_info(v) -> O.VideoInfo:
     return O.VideoInfo(*(int(getattr(v, f)) for f in O.VideoInfo._fields))
+
+
+def pin_update(u) -> PinUpdate:
+    return PinUpdate(int(u.pin_idx), np.array(u.pos, np.float32).reshape(2))
+
+
+def refiner_data(d, *, device) -> R.RefinerData:
+    """A ``RefinerData`` of either package on ``device``, index fields as
+    int64; the reference's padding is kept (it carries no valid entry)."""
+    device = as_device(device)
+    out = {}
+    for f in R.RefinerData.__dataclass_fields__:
+        a = _host(getattr(d, f))
+        if a.dtype.kind in "iu":
+            a = a.astype(np.int64)
+        elif a.dtype.kind == "f":
+            a = a.astype(np.float32)
+        out[f] = torch.as_tensor(np.array(a), device=device)
+    return R.RefinerData(**out)
+
+
+def traj_params(p, *, device) -> R.TrajParams:
+    device = as_device(device)
+    return R.TrajParams(*(_f32(_host(getattr(p, f)), device)
+                          for f in ("q", "t", "fx", "fy", "cx", "cy")))
+
+
+def refiner_entries(d) -> dict:
+    """The valid entries of a ``RefinerData`` of either package, as host
+    arrays, for a field-by-field comparison: each frame's valid keypoints,
+    and for each valid edge its frames, weight, and the source keypoint
+    index and target pixel of each valid match."""
+    kp_valid = _host(d.kp_valid)
+    kps = _host(d.kps)
+    ev = _host(d.edge_valid)
+    mv = _host(d.match_valid)[ev]
+    return dict(
+        kps=[kps[f][kp_valid[f]] for f in range(kp_valid.shape[0])],
+        src_frame=_host(d.src_frame)[ev].astype(np.int64),
+        tgt_frame=_host(d.tgt_frame)[ev].astype(np.int64),
+        edge_weight=_host(d.edge_weight)[ev],
+        src_kp=[r[m].astype(np.int64)
+                for r, m in zip(_host(d.src_kp)[ev], mv)],
+        tgt_px=[r[m] for r, m in zip(_host(d.tgt_px)[ev], mv)],
+        anchor=_host(d.anchor),
+        aspect=float(_host(d.aspect)),
+        conv_sign=float(_host(d.conv_sign)),
+    )
+
+
+def _host(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 def pyramid(p, *, device) -> L.PyramidCache:

@@ -8,7 +8,7 @@ intrinsics Jacobians are over ``(fy, cx, cy)``.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
@@ -128,9 +128,101 @@ def unproject(intr: Intrinsics, p: torch.Tensor) -> torch.Tensor:
     )
 
 
+def unproject_with_jac(intr: Intrinsics, p: torch.Tensor):
+    """Unprojection and ``(d, jac_p (..., 3, 3), jac_intrin (..., 3, 3))``:
+    ``jac_p`` keeps the reference's 3×3 layout with a zero third column,
+    ``jac_intrin`` is over ``(fy, cx, cy)``."""
+    s = intr.sign
+    px, py = p[..., 0], p[..., 1]
+    d = torch.stack(
+        [
+            s * (px - intr.cx) / intr.fx,
+            s * (py - intr.cy) / intr.fy,
+            torch.broadcast_to(s, px.shape),
+        ],
+        dim=-1,
+    )
+    zero = torch.zeros_like(px)
+    jac_p = torch.stack(
+        [
+            s / intr.fx + zero, zero, zero,
+            zero, s / intr.fy + zero, zero,
+            zero, zero, zero,
+        ],
+        dim=-1,
+    ).reshape(*px.shape, 3, 3)
+    jac_intrin = torch.stack(
+        [
+            s * (intr.cx - px) / (intr.fy * intr.fy * intr.aspect_ratio),
+            -s / intr.fx + zero,
+            zero,
+            s * (intr.cy - py) / (intr.fy * intr.fy),
+            zero,
+            -s / intr.fy + zero,
+            zero, zero, zero,
+        ],
+        dim=-1,
+    ).reshape(*px.shape, 3, 3)
+    return d, jac_p, jac_intrin
+
+
 def is_behind(intr: Intrinsics, x: torch.Tensor) -> torch.Tensor:
     """Cheirality test: behind iff ``s · z < 0``."""
     return intr.sign * x[..., 2] < 0.0
+
+
+def proj_matrix_3x3(intr: Intrinsics) -> torch.Tensor:
+    """The K matrix."""
+    z = torch.zeros_like(intr.fx)
+    o = torch.ones_like(intr.fx)
+    return torch.stack(
+        [intr.fx, z, intr.cx, z, intr.fy, intr.cy, z, z, o], dim=-1
+    ).reshape(*intr.fx.shape, 3, 3)
+
+
+# The reference's fixed near/far planes; only rows 0, 1 and 3 of the 4×4
+# projection are meaningful.
+_BOGUS_FAR, _BOGUS_NEAR = 100.0, 10.0
+
+
+def proj_matrix_4x4(intr: Intrinsics) -> torch.Tensor:
+    """4×4 projection with the reference's fixed near/far planes."""
+    f, n = _BOGUS_FAR, _BOGUS_NEAR
+    p22 = -(f + n) / (f - n)
+    p23 = -2.0 * f * n / (f - n)
+    z = torch.zeros_like(intr.fx)
+    o = torch.ones_like(intr.fx)
+    return torch.stack(
+        [
+            intr.fx, z, intr.cx, z,
+            z, intr.fy, intr.cy, z,
+            z, z, p22 + z, p23 + z,
+            z, z, o, z,
+        ],
+        dim=-1,
+    ).reshape(*intr.fx.shape, 4, 4)
+
+
+def rescale(intr: Intrinsics, scale) -> Intrinsics:
+    """Scale fx, fy, cx and cy."""
+    return replace(intr, fx=intr.fx * scale, fy=intr.fy * scale,
+                   cx=intr.cx * scale, cy=intr.cy * scale)
+
+
+def proj_matrix_4x4_np(intr) -> np.ndarray:
+    """Host float64 copy of :func:`proj_matrix_4x4`; the fields may be
+    tensors or numbers."""
+    f, n = _BOGUS_FAR, _BOGUS_NEAR
+    fx, fy, cx, cy = (float(v) for v in (intr.fx, intr.fy, intr.cx, intr.cy))
+    return np.array(
+        [
+            [fx, 0, cx, 0],
+            [0, fy, cy, 0],
+            [0, 0, -(f + n) / (f - n), -2.0 * f * n / (f - n)],
+            [0, 0, 1.0, 0],
+        ],
+        np.float64,
+    )
 
 
 @dataclass

@@ -16,6 +16,24 @@ import torch
 from ..backend import as_device
 
 
+@dataclass
+class Bbox3:
+    pmin: torch.Tensor  # (3,)
+    pmax: torch.Tensor  # (3,)
+
+    def contains(self, p: torch.Tensor) -> torch.Tensor:
+        return torch.all((p > self.pmin) & (p < self.pmax), dim=-1)
+
+
+@dataclass
+class Bbox2:
+    pmin: torch.Tensor  # (2,)
+    pmax: torch.Tensor  # (2,)
+
+    def contains(self, p: torch.Tensor) -> torch.Tensor:
+        return torch.all((p > self.pmin) & (p < self.pmax), dim=-1)
+
+
 def mask_array_size(num_triangles: int) -> int:
     """Packed-u32 mask length padded to a uvec4 multiple."""
     n = (num_triangles + 31) // 32
@@ -67,6 +85,10 @@ class Mesh:
     def num_triangles(self) -> int:
         return int(self.triangles.shape[0])
 
+    @property
+    def bbox(self) -> Bbox3:
+        return Bbox3(self.bbox_min, self.bbox_max)
+
     def triangle_corners(self):
         """Per-triangle corner positions → three (T, 3) tensors."""
         v, t = self.vertices, self.triangles
@@ -82,6 +104,22 @@ class Mesh:
         return self.masked_triangles.cpu().numpy().astype(np.uint32)
 
 
+def set_mask_bits(masked: np.ndarray, tri_idx: int, op: str) -> np.ndarray:
+    """Host mask, unmask or toggle of one triangle's bit in ``uint32``
+    words; returns a new array."""
+    masked = np.asarray(masked, np.uint32).copy()
+    elem, bit = tri_idx // 32, np.uint32(1) << np.uint32(tri_idx % 32)
+    if op == "mask":
+        masked[elem] |= bit
+    elif op == "unmask":
+        masked[elem] &= ~bit
+    elif op == "toggle":
+        masked[elem] ^= bit
+    else:
+        raise ValueError(op)
+    return masked
+
+
 @dataclass
 class SceneTransformations:
     """Model matrix + view matrix + intrinsics."""
@@ -89,3 +127,30 @@ class SceneTransformations:
     model_matrix: torch.Tensor  # (4, 4) object→world
     view_matrix: torch.Tensor  # (4, 4) world→camera
     intrinsics: "Intrinsics"  # noqa: F821
+
+
+# TransformationType
+TRANSFORM_CAMERA = 0
+TRANSFORM_MODEL = 1
+
+
+def transform_points(mat4: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply a homogeneous 4×4 to (..., 3) points."""
+    return pts @ mat4[:3, :3].T + mat4[:3, 3]
+
+
+def transform_bbox(bbox: Bbox3, mat4: torch.Tensor) -> Bbox2:
+    """The 2D extent of the 8 bbox corners through a 4×4, divided by w."""
+    lo, hi = bbox.pmin, bbox.pmax
+    corners = torch.stack(
+        [
+            torch.stack([x, y, z])
+            for x in (lo[0], hi[0])
+            for y in (lo[1], hi[1])
+            for z in (lo[2], hi[2])
+        ]
+    )
+    hom = torch.cat([corners, torch.ones_like(corners[:, :1])], dim=-1)
+    hom = hom @ mat4.T
+    xy = hom[:, :2] / hom[:, 3:4]
+    return Bbox2(xy.min(dim=0).values, xy.max(dim=0).values)

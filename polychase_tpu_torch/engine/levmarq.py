@@ -1,11 +1,12 @@
 """Batched Levenberg–Marquardt, the plain torch version.
 
-Port of ``polychase_tpu/engine/levmarq.py``: the dense solver loop (the
-banded solve that refine needs is not ported yet).  The batch axis that the
-reference gets from ``vmap`` is written out: every state tensor has a
-leading solve axis ``S``, and the loop runs until every solve is done,
-freezing the finished ones, which is what ``vmap`` of a ``while_loop``
-does.  The loop tests ``done`` on the host once per iteration.
+Port of ``polychase_tpu/engine/levmarq.py``: the dense solver loop, the
+damped Cholesky solve and its block-tridiagonal variant.  The batch axis
+that the reference gets from ``vmap`` is written out: every state tensor
+has a leading solve axis ``S``, and the loop runs until every solve is
+done, freezing the finished ones, which is what ``vmap`` of a
+``while_loop`` does.  The loop tests ``done`` on the host once per
+iteration.
 
 Semantics preserved from the reference:
 
@@ -123,6 +124,58 @@ def damped_cholesky_solve(JtJ, Jtr, lam):
         & torch.isfinite(step).all(dim=-1)
     )
     return torch.where(ok[:, None], step, torch.zeros_like(step)), ok
+
+
+def damped_block_tridiag_solve(JtJ, Jtr, lam, *, nb: int, bs: int):
+    """Banded variant of :func:`damped_cholesky_solve` for one system.
+
+    With bundle adjustment's skip pattern an edge couples frames at most
+    ``S`` apart, so super-blocks of ``S`` frames make the normal matrix
+    block-tridiagonal: ``nb`` diagonal blocks of size ``bs``.  ``JtJ`` is
+    the full dense (nb·bs, nb·bs) system, ``Jtr`` (nb·bs,), ``lam`` a float
+    or 0-d tensor; the damping and equilibration are the dense solve's, and
+    zero-padded trailing rows must carry zero ``Jtr``.  The factorization
+    and the two substitutions are loops over the ``nb`` blocks.  Returns
+    ``(step, ok)``, ``ok`` a 0-d bool tensor folding every block's
+    factorization and the step's finiteness; the step is zero where not ok.
+    """
+    n = nb * bs
+    if tuple(JtJ.shape) != (n, n):
+        raise ValueError(f"JtJ is {tuple(JtJ.shape)}, want ({n}, {n})")
+    diag = torch.clamp(torch.diagonal(JtJ), 1e-6, 1e32)
+    damped = diag * (1.0 + lam)
+    A = JtJ.clone()
+    A.diagonal().copy_(damped)
+    d = 1.0 / torch.sqrt(damped)
+    As = (A * d[:, None] * d[None, :]).reshape(nb, bs, nb, bs)
+    b = (Jtr * d).reshape(nb, bs)
+
+    ok = torch.ones((), dtype=torch.bool, device=JtJ.device)
+    Ls, Cts = [], []  # Cts[i] = C_iᵀ with C_i = E_i · L_i^{-T}
+    CCt = torch.zeros((bs, bs), dtype=JtJ.dtype, device=JtJ.device)
+    for i in range(nb):
+        L, info = torch.linalg.cholesky_ex(As[i, :, i, :] - CCt)
+        ok = ok & (info == 0) & torch.isfinite(L).all()
+        Ls.append(L)
+        if i + 1 < nb:
+            Ct = torch.linalg.solve_triangular(
+                L, As[i + 1, :, i, :].T, upper=False
+            )
+            Cts.append(Ct)
+            CCt = Ct.T @ Ct
+    ys, y = [], None
+    for i in range(nb):
+        r = b[i, :, None] if i == 0 else b[i, :, None] - Cts[i - 1].T @ y
+        y = torch.linalg.solve_triangular(Ls[i], r, upper=False)
+        ys.append(y)
+    xs, x = [None] * nb, None
+    for i in reversed(range(nb)):
+        r = ys[i] if i == nb - 1 else ys[i] - Cts[i] @ x
+        x = torch.linalg.solve_triangular(Ls[i].T, r, upper=True)
+        xs[i] = x
+    step = -(torch.cat(xs)[:, 0] * d)
+    ok = ok & torch.isfinite(step).all()
+    return torch.where(ok, step, torch.zeros_like(step)), ok
 
 
 # ---------------------------------------------------------------------------

@@ -163,6 +163,11 @@ def pose_apply(pose: Pose, p: torch.Tensor) -> torch.Tensor:
     return quat_rotate(pose.q, p) + pose.t
 
 
+def pose_rotate(pose: Pose, p: torch.Tensor) -> torch.Tensor:
+    """``R p``."""
+    return quat_rotate(pose.q, p)
+
+
 def pose_derotate(pose: Pose, p: torch.Tensor) -> torch.Tensor:
     """``Rᵀ p``."""
     return quat_rotate(quat_conj(pose.q), p)
@@ -173,9 +178,30 @@ def pose_center(pose: Pose) -> torch.Tensor:
     return -pose_derotate(pose, pose.t)
 
 
+def pose_inverse(pose: Pose) -> Pose:
+    return Pose(quat_conj(pose.q), -pose_derotate(pose, pose.t))
+
+
+def pose_rt4x4(pose: Pose) -> torch.Tensor:
+    """4×4 homogeneous ``[R t; 0 1]``."""
+    R = quat_to_mat(pose.q)
+    top = torch.cat([R, pose.t[..., :, None]], dim=-1)
+    bottom = torch.zeros((*top.shape[:-2], 1, 4), dtype=R.dtype,
+                         device=R.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
 def pose_from_rt(mat: torch.Tensor) -> Pose:
     """4×4 (or 3×4) rigid matrix → Pose."""
     return Pose(mat_to_quat(mat[..., :3, :3]), mat[..., :3, 3])
+
+
+def pose_from_srt(mat: torch.Tensor) -> Pose:
+    """Like :func:`pose_from_rt` but normalizes scaled columns."""
+    R = mat[..., :3, :3]
+    R = R / torch.linalg.norm(R, dim=-2, keepdim=True)
+    return Pose(mat_to_quat(R), mat[..., :3, 3])
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +216,22 @@ def apply_with_jac(R: torch.Tensor, t: torch.Tensor, p: torch.Tensor):
     jac_R = torch.einsum("...ij,...jk->...ik", R, skew(-p))
     jac_t = torch.eye(3, dtype=R.dtype, device=R.device).expand(R.shape)
     return y, R, jac_R, jac_t
+
+
+def derotate_with_jac(R: torch.Tensor, p: torch.Tensor):
+    """``y = Rᵀ p`` and ``(y, jac_p, jac_R)`` with ``jac_p = Rᵀ``,
+    ``jac_R = skew(y)``."""
+    Rt = R.transpose(-1, -2)
+    y = torch.einsum("...ij,...j->...i", Rt, p)
+    return y, Rt, skew(y)
+
+
+def center_with_jac(R: torch.Tensor, t: torch.Tensor):
+    """``c = -Rᵀ t`` and ``(c, jac_R, jac_t)`` with ``jac_R = skew(c)``,
+    ``jac_t = -Rᵀ``."""
+    Rt = R.transpose(-1, -2)
+    c = -torch.einsum("...ij,...j->...i", Rt, t)
+    return c, skew(c), -Rt
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,11 @@
-"""Closest-hit ray casting of grouped rays against a triangle mesh.
+"""Closest-hit ray casting against a triangle mesh, and the single-primitive
+intersections of bundle adjustment.
 
-Port of ``polychase_tpu/engine/raycast.py::raycast_grouped`` and the
-screen-point → ray helpers.  Plain torch: on the TPU this sweep is XLA, not
-Pallas.
+Port of ``polychase_tpu/engine/raycast.py``: ``raycast_grouped`` (one shared
+origin per group of rays, the hot shape), the general ``raycast`` (N rays
+with their own origins), the screen-point → ray helpers, and
+``intersect_ray_plane_jac`` / ``intersect_ray_triangle``.  Plain torch: on
+the TPU these are XLA, not Pallas.
 
 Mask semantics match the reference: the closest hit is found over all
 triangles and then dropped if that triangle is masked (masked triangles
@@ -32,6 +35,100 @@ class RayHits:
     t: torch.Tensor  # (...,) ray parameter
     prim_id: torch.Tensor  # (...,) int64, INVALID_ID on miss
     valid: torch.Tensor  # (...,) bool
+
+
+def _moller_trumbore(origin, direction, p1, p2, p3):
+    """Möller–Trumbore, broadcast over leading dims.  Returns ``(t, u, v,
+    inside)``: ``inside`` is ``|det| > 1e-10`` and (u, v) within the
+    triangle; the caller adds its own test on ``t``."""
+    e1, e2 = p2 - p1, p3 - p1
+    rce2 = cross(direction, e2)
+    det = torch.sum(e1 * rce2, dim=-1)
+    ok = torch.abs(det) > _EPS
+    inv_det = 1.0 / torch.where(ok, det, torch.ones_like(det))
+    s = origin - p1
+    u = inv_det * torch.sum(s * rce2, dim=-1)
+    sce1 = cross(s, e1)
+    v = inv_det * torch.sum(direction * sce1, dim=-1)
+    t = inv_det * torch.sum(e2 * sce1, dim=-1)
+    inside = ok & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1)
+    return t, u, v, inside
+
+
+def _unmasked(mesh: Mesh, best_id: torch.Tensor,
+              check_mask: bool) -> torch.Tensor:
+    """Rays with a closest hit, less those whose triangle is masked."""
+    valid = best_id != INVALID_ID
+    if check_mask:
+        masked = mesh.is_triangle_masked(
+            torch.where(valid, best_id, torch.zeros_like(best_id))
+        )
+        valid = valid & ~masked
+    return valid
+
+
+def _ray_hits(q1, q2, q3, uv, best_t, best_id, valid) -> RayHits:
+    """The hits on triangles (q1, q2, q3) at barycentrics ``uv``, zeroed
+    (t infinite, id ``INVALID_ID``) where not ``valid``."""
+    u, v = uv[..., 0], uv[..., 1]
+    pos = (1.0 - u - v)[..., None] * q1 + u[..., None] * q2 + v[..., None] * q3
+    ng = cross(q2 - q1, q3 - q1)
+    normal = ng / torch.clamp(
+        torch.linalg.vector_norm(ng, dim=-1, keepdim=True), min=1e-20
+    )
+    vm = valid[..., None]
+    return RayHits(
+        pos=torch.where(vm, pos, torch.zeros_like(pos)),
+        normal=torch.where(vm, normal, torch.zeros_like(normal)),
+        barycentric=torch.where(vm, uv, torch.zeros_like(uv)),
+        t=torch.where(valid, best_t, torch.full_like(best_t, torch.inf)),
+        prim_id=torch.where(valid, best_id,
+                            torch.full_like(best_id, INVALID_ID)),
+        valid=valid,
+    )
+
+
+def raycast(mesh: Mesh, origins: torch.Tensor, dirs: torch.Tensor,
+            check_mask: bool = True, chunk: int = 1024) -> RayHits:
+    """Closest-hit cast of N rays, each with its own origin: ``origins`` and
+    ``dirs`` (N, 3).  Triangles are swept in ``chunk``-sized blocks; the
+    closest hit's barycentrics are carried through the sweep."""
+    origins = origins.to(torch.float32).reshape(-1, 3)
+    dirs = dirs.to(torch.float32).reshape(-1, 3)
+    n = origins.shape[0]
+    dev = origins.device
+    p1, p2, p3 = mesh.triangle_corners()
+    num_tris = p1.shape[0]
+    pad = (-num_tris) % chunk
+    if pad:
+        z = torch.zeros((pad, 3), dtype=p1.dtype, device=dev)
+        p1, p2, p3 = (torch.cat([p, z]) for p in (p1, p2, p3))
+
+    best_t = torch.full((n,), torch.inf, dtype=torch.float32, device=dev)
+    best_uv = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+    best_id = torch.full((n,), INVALID_ID, dtype=torch.int64, device=dev)
+    lane = torch.arange(chunk, dtype=torch.int64, device=dev)
+    for base in range(0, num_tris + pad, chunk):
+        sl = slice(base, base + chunk)
+        t, u, v, hit = _moller_trumbore(origins[:, None], dirs[:, None],
+                                        p1[sl][None], p2[sl][None],
+                                        p3[sl][None])
+        hit = hit & (t > 0) & ((base + lane) < num_tris)[None, :]
+        t = torch.where(hit, t, torch.full_like(t, torch.inf))
+        j = torch.argmin(t, dim=-1)
+        tj = torch.gather(t, -1, j[:, None])[:, 0]
+        closer = tj < best_t
+        uj = torch.gather(u, -1, j[:, None])[:, 0]
+        vj = torch.gather(v, -1, j[:, None])[:, 0]
+        best_uv = torch.where(closer[:, None], torch.stack([uj, vj], -1),
+                              best_uv)
+        best_id = torch.where(closer, base + j, best_id)
+        best_t = torch.where(closer, tj, best_t)
+
+    valid = _unmasked(mesh, best_id, check_mask)
+    safe_id = torch.where(valid, best_id, torch.zeros_like(best_id))
+    return _ray_hits(p1[safe_id], p2[safe_id], p3[safe_id], best_uv, best_t,
+                     best_id, valid)
 
 
 def _chunk_size(num_rays: int, num_tris: int) -> int:
@@ -122,13 +219,7 @@ def raycast_grouped(mesh: Mesh, origins: torch.Tensor, dirs: torch.Tensor,
         best_id = torch.where(closer, base + j, best_id)
         best_t = torch.where(closer, tj, best_t)
 
-    valid = best_id != INVALID_ID
-    if check_mask:
-        masked = mesh.is_triangle_masked(
-            torch.where(valid, best_id, torch.zeros_like(best_id))
-        )
-        valid = valid & ~masked
-
+    valid = _unmasked(mesh, best_id, check_mask)
     safe_id = torch.where(valid, best_id, torch.zeros_like(best_id))
     q1, q2, q3 = p1[safe_id], p2[safe_id], p3[safe_id]
 
@@ -147,23 +238,9 @@ def raycast_grouped(mesh: Mesh, origins: torch.Tensor, dirs: torch.Tensor,
         valid, 1.0 / torch.where(bdet_ok, bdet, torch.ones_like(bdet)),
         torch.zeros_like(bdet),
     )
-    u = torch.sum(dirs * bB, dim=-1) * binv
-    v = torch.sum(dirs * bCq, dim=-1) * binv
-    best_uv = torch.stack([u, v], dim=-1)
-    pos = (1.0 - u - v)[..., None] * q1 + u[..., None] * q2 + v[..., None] * q3
-    ng = cross(q2 - q1, q3 - q1)
-    normal = ng / torch.clamp(
-        torch.linalg.vector_norm(ng, dim=-1, keepdim=True), min=1e-20
-    )
-    vm = valid[..., None]
-    return RayHits(
-        pos=torch.where(vm, pos, torch.zeros_like(pos)),
-        normal=torch.where(vm, normal, torch.zeros_like(normal)),
-        barycentric=torch.where(vm, best_uv, torch.zeros_like(best_uv)),
-        t=torch.where(valid, best_t, torch.full_like(best_t, torch.inf)),
-        prim_id=torch.where(valid, best_id, torch.full_like(best_id, INVALID_ID)),
-        valid=valid,
-    )
+    uv = torch.stack([torch.sum(dirs * bB, dim=-1) * binv,
+                      torch.sum(dirs * bCq, dim=-1) * binv], dim=-1)
+    return _ray_hits(q1, q2, q3, uv, best_t, best_id, valid)
 
 
 def get_ray_object_space(scene: SceneTransformations, pos: torch.Tensor):
@@ -172,3 +249,41 @@ def get_ray_object_space(scene: SceneTransformations, pos: torch.Tensor):
     origin = mat[:3, 3]
     direction = camera.unproject(scene.intrinsics, pos) @ mat[:3, :3].T
     return origin, direction
+
+
+def get_ray_world_space(scene: SceneTransformations, pos: torch.Tensor):
+    """Unproject pixel(s) into a world-space ray: ``(origin, direction)``."""
+    mat = torch.linalg.inv(scene.view_matrix)
+    origin = mat[:3, 3]
+    direction = camera.unproject(scene.intrinsics, pos) @ mat[:3, :3].T
+    return origin, direction
+
+
+# ---------------------------------------------------------------------------
+# Single-primitive intersections for bundle adjustment
+# ---------------------------------------------------------------------------
+
+
+def intersect_ray_plane_jac(origin, direction, plane_point, plane_normal):
+    """Ray–plane intersection, batched over leading dims.  Returns
+    ``(x, jac_origin, jac_dir, ok)`` with ``jac_origin = I − d nᵀ / (d·n)``
+    and ``jac_dir = jac_origin · t``; ``ok`` is ``|d·n| > 1e-10``."""
+    d_dot_n = torch.sum(direction * plane_normal, dim=-1)
+    ok = torch.abs(d_dot_n) > _EPS
+    safe = torch.where(ok, d_dot_n, torch.ones_like(d_dot_n))
+    t = torch.sum((plane_point - origin) * plane_normal, dim=-1) / safe
+    x = origin + direction * t[..., None]
+    dn = (direction[..., :, None] * plane_normal[..., None, :]
+          / safe[..., None, None])
+    eye = torch.eye(3, dtype=direction.dtype, device=direction.device)
+    jac_origin = eye - dn
+    jac_dir = jac_origin * t[..., None, None]
+    return x, jac_origin, jac_dir, ok
+
+
+def intersect_ray_triangle(origin, direction, p1, p2, p3):
+    """Single ray–triangle Möller–Trumbore, batched over leading dims.
+    Returns ``(x, ok)``; a hit needs ``t >= 0`` and ``u <= 1``, unlike the
+    sweeps' strict ``t > 0``."""
+    t, _, _, inside = _moller_trumbore(origin, direction, p1, p2, p3)
+    return origin + direction * t[..., None], inside & (t >= 0)

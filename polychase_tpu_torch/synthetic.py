@@ -1,5 +1,6 @@
-"""Synthetic clips, without JAX: an orbit clip with its flow database, and
-a panning clip of blurred noise for analyze.
+"""Synthetic clips, without JAX: an orbit clip with its flow database, a
+noisy trajectory and surface pins on it, and a panning clip of blurred noise
+for analyze.
 
 The scene is the tracking configuration of ``benchmarks/run_all.py``
 (``make_scene`` / ``build_synth_db``): a UV sphere at the origin, an OpenCV
@@ -8,6 +9,11 @@ central 40% of the frame that hit the sphere, and their flows along the
 ±{1, 2, 4, 8} skip fan with Gaussian pixel noise.  Keypoints are ray-cast
 with the port's ``raycast_grouped`` on the given device; everything else is
 numpy, seeded by the caller's generator.
+
+Config 4 (``benchmarks/run_all.py:348-398``) is this clip at 250 frames,
+128 keypoints per frame and 0.3 px noise over a 24×32 sphere (1,472
+triangles), refined from ``noisy_trajectory``; config 2
+(``run_all.py:219-265``) drags ``surface_pins`` seen from its first frame.
 """
 
 from __future__ import annotations
@@ -17,9 +23,11 @@ import torch
 
 from polychase_tpu.io.database import Database
 
+from .engine import camera as C
 from .engine.geometry import Mesh
-from .engine.pose import quat_to_mat_np
+from .engine.pose import Pose, quat_to_mat_np
 from .engine.raycast import raycast_grouped
+from .engine.trajectory import CameraTrajectory
 
 IMAGE_SKIPS = (-8, -4, -2, -1, 1, 2, 4, 8)
 
@@ -118,6 +126,45 @@ def build_flow_db(db_path: str, mesh: Mesh, focal: float, width: int,
                     )
     finally:
         db.close()
+
+
+def noisy_trajectory(poses, intrinsics: C.Intrinsics, rng: np.random.Generator,
+                     t_sigma: float = 0.005) -> CameraTrajectory:
+    """The clip's cameras with N(0, ``t_sigma``) noise on the translation of
+    every frame but the first and last (``run_all.py:364-373``), as CPU
+    tensors."""
+    n = len(poses)
+    traj = CameraTrajectory(0, n)
+    intr = intrinsics.to("cpu")
+    for i, (q, t) in enumerate(poses):
+        t = np.asarray(t, np.float32)
+        if i not in (0, n - 1):
+            t = t + rng.normal(0, t_sigma, 3).astype(np.float32)
+        traj.set(i, C.CameraState(intr, Pose(torch.as_tensor(q.copy()),
+                                             torch.as_tensor(t.copy()))))
+    return traj
+
+
+def surface_pins(mesh: Mesh, pose, focal: float, width: int, height: int,
+                 rng: np.random.Generator, n: int = 8) -> np.ndarray:
+    """Mesh-surface points under ``n`` random pixels of the central region
+    ``(700, 400)–(1200, 700)`` seen from ``pose`` = (q, t), cast on the
+    mesh's device (``run_all.py:231-240``); (≤ n, 3) float32, misses
+    dropped."""
+    q, t = pose
+    R = quat_to_mat_np(q)
+    pix = rng.uniform((700, 400), (1200, 700), (n, 2)).astype(np.float32)
+    d_cam = np.stack([(pix[:, 0] - width / 2.0) / focal,
+                      (pix[:, 1] - height / 2.0) / focal,
+                      np.ones(n)], axis=-1)
+    origin = -(R.T @ np.asarray(t, np.float64))
+    dev = mesh.vertices.device
+    hits = raycast_grouped(
+        mesh, torch.as_tensor(origin[None].astype(np.float32), device=dev),
+        torch.as_tensor((d_cam @ R)[None].astype(np.float32), device=dev),
+        True,
+    )
+    return hits.pos[0][hits.valid[0]].cpu().numpy()
 
 
 def _gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:

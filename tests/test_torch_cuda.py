@@ -1,5 +1,6 @@
 """K1 (csrc/pnp_lm.cu), K2 (csrc/lk_prep.cu) and K3 (csrc/lk_iter.cu)
-against their plain torch versions on a CUDA card.
+against their plain torch versions on a CUDA card, and refine and pin mode
+on the card against the same work on the CPU.
 
 These tests need the card and skip elsewhere.  The file imports no jax, so
 it runs on a machine without it:
@@ -196,3 +197,118 @@ def test_lk_kernels_reject_bad_inputs(lk_case):
         lk_iter.lk_iter_level(imgs.cpu(), *prep, cur, **ikw)
     with pytest.raises(ValueError):
         lk_iter.lk_iter_level(imgs, *prep[:7], prep[7].float(), cur, **ikw)
+
+
+# ---------------------------------------------------------------------------
+# Refine and pin mode
+# ---------------------------------------------------------------------------
+
+
+def _refine(dev, db_path, poses, seed):
+    """A refine of a 30-frame orbit clip on ``dev``; returns the refined
+    translations and the last progress report."""
+    from polychase_tpu_torch.engine.camera import OPENCV, Intrinsics
+    from polychase_tpu_torch.engine.geometry import Mesh
+    from polychase_tpu_torch.engine.levmarq import CAUCHY
+    from polychase_tpu_torch.engine.refiner import refine_trajectory
+    from polychase_tpu_torch.synthetic import noisy_trajectory, uv_sphere
+
+    mesh = Mesh.create(*uv_sphere(24, 32), device=dev)
+    intr = Intrinsics.create(1800, 1800, 960, 540, 1, 1920, 1080, OPENCV,
+                             device=dev)
+    traj = noisy_trajectory(poses, intr, np.random.default_rng(seed))
+    ups = []
+    refine_trajectory(db_path, traj, np.eye(4, dtype=np.float32), mesh,
+                      optimize_focal_length=True,
+                      callback=lambda u: ups.append(u) or True,
+                      bundle_opts=BundleOptions(loss_type=CAUCHY,
+                                                max_iterations=30),
+                      device=dev)
+    t = np.stack([traj.get(i).pose.t.numpy() for i in range(len(poses))])
+    return t, ups[-1]
+
+
+def test_refine_on_card_matches_cpu(card, tmp_path):
+    """Final cost within 1e-3 relative, translations within 5e-4."""
+    from polychase_tpu_torch.engine.geometry import Mesh
+    from polychase_tpu_torch.synthetic import (
+        build_flow_db, orbit_poses, uv_sphere,
+    )
+
+    poses = orbit_poses(30)
+    db_path = str(tmp_path / "flow.db")
+    build_flow_db(db_path, Mesh.create(*uv_sphere(24, 32), device="cpu"),
+                  1800.0, 1920, 1080, poses, np.random.default_rng(2), 128,
+                  0.3)
+    t_gpu, up_gpu = _refine(card, db_path, poses, 3)
+    t_cpu, up_cpu = _refine(torch.device("cpu"), db_path, poses, 3)
+    np.testing.assert_allclose(float(up_gpu.stats.cost),
+                               float(up_cpu.stats.cost), rtol=1e-3)
+    np.testing.assert_allclose(t_gpu, t_cpu, atol=5e-4)
+
+
+@pytest.mark.parametrize("lam", [1e-5, 1e-2, 1.0])
+def test_banded_solve_matches_dense_on_card(card, lam):
+    """Config 4's block shape (nb 32, bs 72), steps within 1e-4 of the
+    largest component."""
+    from polychase_tpu_torch.engine.levmarq import (
+        damped_block_tridiag_solve, damped_cholesky_solve,
+    )
+
+    rng = np.random.default_rng(0)
+    nb, bs = 32, 72
+    n = nb * bs
+    A = np.zeros((n, n))
+    for i in range(nb):
+        Q = rng.normal(0, 1, (bs, bs))
+        A[i * bs:(i + 1) * bs, i * bs:(i + 1) * bs] = Q @ Q.T + 5 * np.eye(bs)
+        if i + 1 < nb:
+            E = rng.normal(0, 0.3, (bs, bs))
+            A[(i + 1) * bs:(i + 2) * bs, i * bs:(i + 1) * bs] = E
+            A[i * bs:(i + 1) * bs, (i + 1) * bs:(i + 2) * bs] = E.T
+    At = torch.as_tensor(A, dtype=torch.float32, device=card)
+    bt = torch.as_tensor(rng.normal(0, 1, n), dtype=torch.float32,
+                         device=card)
+    band, ok = damped_block_tridiag_solve(At, bt, lam, nb=nb, bs=bs)
+    dense, dok = damped_cholesky_solve(
+        At[None], bt[None], torch.full((1,), lam, device=card))
+    assert bool(ok) and bool(dok[0])
+    diff = float((band - dense[0]).abs().max() / dense[0].abs().max())
+    assert diff <= 1e-4, diff
+
+
+def test_pin_device_route_launches_k1(card, monkeypatch):
+    """512 pins go through the device route, which launches K1 once; the
+    pose agrees with the host route within 1e-4."""
+    from polychase_tpu_torch.engine import pinmode
+    from polychase_tpu_torch.engine.camera import OPENCV, Intrinsics
+    from polychase_tpu_torch.engine.geometry import (
+        TRANSFORM_CAMERA, Mesh, SceneTransformations,
+    )
+    from polychase_tpu_torch.synthetic import (
+        orbit_poses, surface_pins, uv_sphere,
+    )
+
+    q, t = orbit_poses(1)[0]
+    mesh = Mesh.create(*uv_sphere(24, 32), device=card)
+    pins = surface_pins(mesh, (q, t), 1800.0, 1920, 1080,
+                        np.random.default_rng(0), 512)
+    assert len(pins) > pinmode.HOST_PIN_MAX
+    view = np.eye(4, dtype=np.float32)
+    view[:3, :3] = quat_to_mat_np(q)
+    view[:3, 3] = t
+    intr = Intrinsics.create(1800, 1800, 960, 540, 1, 1920, 1080, OPENCV,
+                             device=card)
+    scene = SceneTransformations(torch.eye(4, device=card),
+                                 torch.as_tensor(view, device=card), intr)
+    upd = pinmode.PinUpdate(2, np.array([955.0, 542.0], np.float32))
+    before = pnp_lm.launches
+    dev = pinmode.find_transformation(pins, scene, scene, upd,
+                                      TRANSFORM_CAMERA, device=card)
+    assert pnp_lm.launches == before + 1
+    monkeypatch.setattr(pinmode, "HOST_PIN_MAX", 1 << 30)
+    host = pinmode.find_transformation(pins, scene, scene, upd,
+                                       TRANSFORM_CAMERA, device=card)
+    assert pnp_lm.launches == before + 1
+    np.testing.assert_allclose(dev.view_matrix.numpy(),
+                               host.view_matrix.numpy(), atol=1e-4)

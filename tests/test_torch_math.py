@@ -1,6 +1,7 @@
 """Pose, camera and geometry functions of the port against the JAX
 package's, on the same numpy-seeded inputs, atol 1e-6 (f32 ops in the same
-order; the tolerance covers the libraries' own roundings)."""
+order; the tolerance covers the libraries' own roundings); the helpers that
+only refine and pin mode use within 1e-6 relative."""
 
 import numpy as np
 import pytest
@@ -191,3 +192,97 @@ def test_trajectory_and_options_carry_across(rng):
 def test_explicit_device_required():
     with pytest.raises(ValueError):
         TC.Intrinsics.create(1, 1, 0, 0, 1, 2, 2, device=None)
+
+
+# ---------------------------------------------------------------------------
+# Helpers that refine and pin mode use: within 1e-6 relative (to the
+# largest magnitude of each output)
+# ---------------------------------------------------------------------------
+
+RTOL = 1e-6
+
+
+def _rel_close(got, ref):
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    ref = np.asarray(ref)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    scale = max(float(np.abs(ref).max()) if ref.size else 0.0, 1e-30)
+    assert float(np.abs(got - ref).max()) <= RTOL * scale
+
+
+def test_pose_helpers(rng):
+    q, t, p = _quats(rng), _vecs(rng), _vecs(rng, scale=3.0)
+    tp, jp = TP.Pose(T(q), T(t)), JP.Pose(J(q), J(t))
+    _rel_close(TP.pose_rotate(tp, T(p)), JP.pose_rotate(jp, J(p)))
+    ti, ji = TP.pose_inverse(tp), JP.pose_inverse(jp)
+    _rel_close(ti.q, ji.q)
+    _rel_close(ti.t, ji.t)
+    _rel_close(TP.pose_rt4x4(tp), JP.pose_rt4x4(jp))
+    m = np.asarray(JP.pose_rt4x4(jp)).copy()
+    m[..., :3, :3] *= rng.uniform(0.5, 2.0, (64, 1, 3)).astype(np.float32)
+    ts, js = TP.pose_from_srt(T(m)), JP.pose_from_srt(J(m))
+    _rel_close(ts.q, js.q)
+    _rel_close(ts.t, js.t)
+    R = np.asarray(JP.quat_to_mat(J(q)))
+    for got, ref in zip(TP.derotate_with_jac(T(R), T(p)),
+                        JP.derotate_with_jac(J(R), J(p))):
+        _rel_close(got, ref)
+    for got, ref in zip(TP.center_with_jac(T(R), T(t)),
+                        JP.center_with_jac(J(R), J(t))):
+        _rel_close(got, ref)
+
+
+@pytest.mark.parametrize("convention", [JC.OPENGL, JC.OPENCV])
+def test_camera_helpers(rng, convention):
+    ji, ti = _intrinsics(convention)
+    px = rng.uniform(0, 1280, size=(128, 2)).astype(np.float32)
+    for got, ref in zip(TC.unproject_with_jac(ti, T(px)),
+                        JC.unproject_with_jac(ji, J(px))):
+        _rel_close(got, ref)
+    _rel_close(TC.proj_matrix_3x3(ti), JC.proj_matrix_3x3(ji))
+    _rel_close(TC.proj_matrix_4x4(ti), JC.proj_matrix_4x4(ji))
+    np.testing.assert_allclose(TC.proj_matrix_4x4_np(ti),
+                               JC.proj_matrix_4x4_np(ji), rtol=RTOL)
+    tr, jr = TC.rescale(ti, 0.5), JC.rescale(ji, 0.5)
+    for f in ("fx", "fy", "cx", "cy", "aspect_ratio", "width", "sign"):
+        _rel_close(getattr(tr, f), getattr(jr, f))
+
+
+def test_geometry_helpers(rng):
+    from polychase_tpu.engine import geometry as JG
+    from polychase_tpu_torch.engine import geometry as TG
+
+    assert (TG.TRANSFORM_CAMERA, TG.TRANSFORM_MODEL) == (
+        JG.TRANSFORM_CAMERA, JG.TRANSFORM_MODEL)
+    words = np.zeros(8, np.uint32)
+    for i, op in ((3, "mask"), (31, "mask"), (64, "toggle"), (3, "unmask"),
+                  (200, "toggle"), (200, "toggle"), (255, "mask")):
+        got = TG.set_mask_bits(words, i, op)
+        np.testing.assert_array_equal(got, JG.set_mask_bits(words, i, op))
+        words = got
+    with pytest.raises(ValueError):
+        TG.set_mask_bits(words, 1, "flip")
+
+    lo, hi = np.array([-1.0, -0.5, -2.0], np.float32), np.ones(3, np.float32)
+    p3 = rng.uniform(-2.5, 1.5, (256, 3)).astype(np.float32)
+    np.testing.assert_array_equal(
+        TG.Bbox3(T(lo), T(hi)).contains(T(p3)).numpy(),
+        np.asarray(JG.Bbox3(J(lo), J(hi)).contains(J(p3))))
+    np.testing.assert_array_equal(
+        TG.Bbox2(T(lo[:2]), T(hi[:2])).contains(T(p3[:, :2])).numpy(),
+        np.asarray(JG.Bbox2(J(lo[:2]), J(hi[:2])).contains(J(p3[:, :2]))))
+
+    ji, _ = _intrinsics(JC.OPENCV)
+    pose = JP.Pose(J(_quats(rng, 1)[0]), J(np.array([0.1, -0.2, 6.0],
+                                                    np.float32)))
+    mat = np.asarray(JC.proj_matrix_4x4(ji) @ JP.pose_rt4x4(pose))
+    _rel_close(TG.transform_points(T(mat), T(p3)),
+               JG.transform_points(J(mat), J(p3)))
+    tb = TG.transform_bbox(TG.Bbox3(T(lo), T(hi)), T(mat))
+    jb = JG.transform_bbox(JG.Bbox3(J(lo), J(hi)), J(mat))
+    _rel_close(tb.pmin, jb.pmin)
+    _rel_close(tb.pmax, jb.pmax)
+    verts = rng.normal(size=(30, 3)).astype(np.float32)
+    tris = rng.integers(0, 30, (40, 3)).astype(np.uint32)
+    tm = TG.Mesh.create(verts, tris, device="cpu")
+    _rel_close(tm.bbox.pmin, JG.Mesh.create(verts, tris).bbox.pmin)

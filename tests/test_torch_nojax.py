@@ -1,6 +1,6 @@
-"""The port runs with jax unimportable: a tiny track and a tiny analyze,
-each in a fresh process whose import system refuses ``jax`` and
-``jaxlib``."""
+"""The port runs with jax unimportable: a tiny track, a tiny analyze, and a
+tiny refine followed by a pin drag, each in a fresh process whose import
+system refuses ``jax`` and ``jaxlib``."""
 
 import os
 import subprocess
@@ -111,6 +111,69 @@ ANALYZE = REFUSE_JAX + textwrap.dedent(
 )
 
 
+REFINE_AND_PIN = REFUSE_JAX + textwrap.dedent(
+    """
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+
+    from polychase_tpu_torch.engine.camera import OPENCV, Intrinsics
+    from polychase_tpu_torch.engine.geometry import (
+        TRANSFORM_CAMERA, Mesh, SceneTransformations,
+    )
+    from polychase_tpu_torch.engine.levmarq import CAUCHY, BundleOptions
+    from polychase_tpu_torch.engine.pinmode import (
+        PinUpdate, find_transformation,
+    )
+    from polychase_tpu_torch.engine.pose import quat_to_mat_np
+    from polychase_tpu_torch.engine.refiner import refine_trajectory
+    from polychase_tpu_torch.synthetic import (
+        build_flow_db, noisy_trajectory, orbit_poses, surface_pins,
+        uv_sphere,
+    )
+
+    dev = torch.device("cpu")
+    rng = np.random.default_rng(0)
+    verts, tris = uv_sphere(12, 16)
+    mesh = Mesh.create(verts, tris, device=dev)
+    intr = Intrinsics.create(1800, 1800, 960, 540, 1, 1920, 1080, OPENCV,
+                             device=dev)
+    poses = orbit_poses(12)
+
+    def t_err(traj):
+        return np.median([np.linalg.norm(traj.get(i).pose.t.numpy()
+                                         - poses[i][1]) for i in range(12)])
+
+    with tempfile.TemporaryDirectory() as td:
+        db = os.path.join(td, "flow.db")
+        build_flow_db(db, mesh, 1800.0, 1920, 1080, poses, rng, 128, 0.3)
+        traj = noisy_trajectory(poses, intr, rng)
+        before = t_err(traj)
+        refine_trajectory(db, traj, np.eye(4, dtype=np.float32), mesh,
+                          optimize_focal_length=True,
+                          bundle_opts=BundleOptions(loss_type=CAUCHY,
+                                                    max_iterations=30),
+                          device=dev)
+    assert t_err(traj) < before, (t_err(traj), before)
+    pins = surface_pins(mesh, poses[0], 1800.0, 1920, 1080, rng)
+    assert pins.shape == (8, 3), pins.shape
+    view = np.eye(4, dtype=np.float32)
+    view[:3, :3] = quat_to_mat_np(poses[0][0])
+    view[:3, 3] = poses[0][1]
+    scene = SceneTransformations(torch.eye(4), torch.as_tensor(view), intr)
+    out = find_transformation(pins, scene, scene,
+                              PinUpdate(2, np.array([955.0, 542.0])),
+                              TRANSFORM_CAMERA, device=dev)
+    assert torch.isfinite(out.view_matrix).all()
+    assert not torch.equal(out.view_matrix, scene.view_matrix)
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
+    assert not leaked, leaked
+    print("refined and pinned without jax")
+    """
+)
+
+
 def _run(script):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -130,3 +193,9 @@ def test_port_analyzes_without_jax():
     proc = _run(ANALYZE)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "analyzed 22 pairs without jax" in proc.stdout
+
+
+def test_port_refines_and_pins_without_jax():
+    proc = _run(REFINE_AND_PIN)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "refined and pinned without jax" in proc.stdout
