@@ -12,18 +12,22 @@ Usage, from the root of a checkout on a machine with a CUDA card:
 3. K1 phase: the kernel against its plain torch version on the card,
    over every loss × function_tol × (opt_f, opt_pp), points behind the
    camera, all points masked, N = 16384 and a batch of 8 solves, with the
-   tolerances of tests/test_pnp_pallas.py; prints both times per solve.
+   tolerances of tests/test_pnp_pallas.py; prints both times per solve and
+   the kernel's bound.
 4. LK kernel phase: K2 and K3 against their plain torch versions at every
    level of one source frame of a 1920×1080 panning clip (config 1b's:
    blurred noise panning (7, 4) px per frame), with its real GFTT corners
-   and its 8 skip targets; prints both times per call, the gate and status
-   agreement and the largest differences.
+   and its 8 skip targets, K3 at each of its group widths; prints per level
+   both times per call, each kernel's bound and share of it, the
+   iterations the pairs needed (counted by the plain version), the gate and
+   status agreement and the largest differences.
 5. Analyze phase: ``generate_optical_flow_database`` on 24 frames of that
-   clip with default options, a warm-up run and a timed run, each into a
-   fresh DB.  Checks corners on every frame, every skip pair, the flows of
-   skips ±1 and ±2 against the ground truth -s·(7, 4), the share of flows
-   kept at ±1, and that K2 and K3 launched once per level of every solve;
-   prints analyze frames/s.
+   clip with default options, a warm-up run, a timed run and a run under
+   ``torch.profiler``, each into a fresh DB.  Checks corners on every
+   frame, every skip pair, the flows of skips ±1 and ±2 against the ground
+   truth -s·(7, 4), the share of flows kept at ±1, and that K2 and K3
+   launched once per level of every solve; prints analyze frames/s and the
+   device busy share.
 6. Tracking phase: a synthetic 1920×1080, f = 1800, 120-frame orbit clip
    over a 20,224-triangle sphere with 2048 keypoints per frame and 0.3 px
    flow noise, written to a flow DB, tracked through ``track_sequence``
@@ -50,7 +54,9 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    agree with the host route within 1e-4, and K1 is held against its plain
    version on the drags' solver inputs; then the table of host against
    device route times from which the pin crossover was set.
-9. Prints the card, the kernels' JSON line and, last, ``{"ok": true, ...}``.
+9. Prints the card, the kernels' JSON line (time, plain time, bound and
+   what sets it, launches on the main path, largest difference) and, last,
+   ``{"ok": true, ...}``.
 
 Any failed check raises, so the script exits non-zero without the last line.
 It refuses to run without a CUDA device.
@@ -254,13 +260,15 @@ def kernel_phase(device, n=N_POINTS, seed=0):
             times[np_] = (
                 event_ms(lambda: solve_arrays_lm(*args, **kw), 20),
                 event_ms(lambda: solve_arrays(*args, **kw), 3),
+                k1_bound(n, np_, int(got[0, 11])),
             )
     torch.cuda.synchronize()
     if fails:
         raise AssertionError("kernel vs plain:\n" + "\n".join(fails))
-    for np_, (k, p) in sorted(times.items()):
+    for np_, (k, p, b) in sorted(times.items()):
         print(f"  per solve, N={n}, {np_} params, Huber, ftol 1e-5: "
-              f"kernel {k:.4f} ms, plain {p:.4f} ms")
+              f"kernel {k:.4f} ms, plain {p:.4f} ms; bound {b[0]:.6f} ms "
+              f"by {b[1]}, {b[0] / k:.4f} of it")
     return max_err, times
 
 
@@ -269,12 +277,65 @@ def kernel_phase(device, n=N_POINTS, seed=0):
 # ---------------------------------------------------------------------------
 
 
+# The card's peaks for a kernel's bound (NVIDIA's data sheet, H100 SXM, at
+# the 700 W limit): device memory bytes/s and f32 operations/s outside the
+# tensor cores.
+PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+# f32 operations of the LK kernels: per window pixel of one K2 feature, the
+# blend of three planes (3 × 7) and the three A products (3 × 2); per
+# window pixel of one K3 iteration, the blend (7), diff (2) and two FMAs
+# (4); per pixel of the level-0 err pass, the blend, |J - I| and the sum.
+K2_OPS_PIXEL, K3_OPS_PIXEL, K3_ERR_OPS_PIXEL = 27, 13, 10
+# K1: f32 operations per point and LM iteration, counted from csrc/pnp_lm.cu
+# (a trial-cost pass, ~40, and a normal-equation pass: projection and
+# Jacobian ~85 and the 27 JtJ/Jtr sums × 5, ~135, with 6 parameters; the
+# 54 sums of 9 parameters make it ~390).
+K1_OPS_POINT_ITER = {6: 260, 9: 390}
+
+
+def bound_ms(nbytes: float, ops: float):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the f32 operations over the f32 rate, and which one."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_bound(n, n_params, iterations):
+    """K1 on one solve of n points: each input read once (X, x, weight,
+    mask, 16 params), the 19-float row written once; iterations + 1 passes
+    of the per-point work."""
+    nbytes = n * (12 + 8 + 4 + 1) + 16 * 4 + 19 * 4
+    return bound_ms(nbytes, (iterations + 1) * n * K1_OPS_POINT_ITER[n_params])
+
+
+def k2_bound(n, hp, wp, win):
+    """K2 at one level: the three padded planes read, the points read, the
+    (n, 3, win, win) patches, the four vectors and ok written."""
+    nbytes = 3 * hp * wp * 4 + n * 8 + n * 3 * win * win * 4 + n * 17
+    return bound_ms(nbytes, n * win * win * K2_OPS_PIXEL)
+
+
+def k3_bound(T, n, hp, wp, win, iterations, level_is_zero):
+    """K3 at one level: templates, the T padded target levels, the four
+    vectors, ok and the guesses read; points, status and err written; the
+    window sums these inputs need (``iterations`` summed over the pairs)
+    and, at level 0, one err pass per pair."""
+    nbytes = (n * 3 * win * win * 4 + T * hp * wp * 4 + n * 17 + T * n * 8
+              + T * n * 13)
+    ops = iterations * win * win * K3_OPS_PIXEL
+    if level_is_zero:
+        ops += T * n * win * win * K3_ERR_OPS_PIXEL
+    return bound_ms(nbytes, ops)
+
+
 def lk_kernel_phase(device, frames):
     """K2 and K3 against their plain versions at every level of one source
     frame and its 8 targets.  K3 gets the plain prep and, at each level, the
-    guesses of the kernel chain.  Returns the largest patch difference, the
-    largest level-0 position difference and the level-0 times (kernel,
-    plain) of K2 and K3."""
+    guesses of the kernel chain.  Prints per level both kernels' times,
+    bounds and shares of the bound and the iterations the pairs needed.
+    Returns the largest patch difference, the largest level-0 position
+    difference, the level-0 times (kernel, plain) of K2 and K3 and their
+    level-0 bounds (ms, kind)."""
     from polychase_tpu_torch.engine import lk
     from polychase_tpu_torch.engine.gftt import good_features_to_track
     from polychase_tpu_torch.engine.opticalflow import IMAGE_SKIPS
@@ -295,19 +356,20 @@ def lk_kernel_phase(device, frames):
     eps2 = float(opts.term_epsilon ** 2)
     top = levels - 1
     cur = (pts * (1.0 / (1 << top))).expand(T, n, 2).contiguous()
-    fails, patch_err, pos_err, times = [], 0.0, 0.0, {}
+    fails, patch_err, pos_err, times, bounds = [], 0.0, 0.0, {}, {}
     for lvl in range(top, -1, -1):
         if lvl != top:
             cur = cur * 2.0
         img, dx, dy, (H, W) = src.levels[lvl]
+        hp, wp = img.shape
         p = pts * (1.0 / (1 << lvl))
         kw = dict(win=win, H=H, W=W, min_eig_thr=opts.min_eigen_threshold)
         got = lk_prep_level(img, dx, dy, p, **kw)
         ref = lk.prep_level(img, dx, dy, p, **kw)
-        dp = max(float((a - b).abs().max()) for a, b in zip(got[:3], ref[:3]))
+        dp = float((got[0] - ref[0]).abs().max())
         da = max(float(((a - b).abs() / b.abs().max()).max())
-                 for a, b in zip(got[3:6], ref[3:6]))
-        gate = float((got[7] == ref[7]).float().mean())
+                 for a, b in zip(got[1:4], ref[1:4]))
+        gate = float((got[5] == ref[5]).float().mean())
         patch_err = max(patch_err, dp)
         if dp > PATCH_ATOL or da > A_RTOL or gate < GATE_AGREE:
             fails.append(f"K2 level {lvl}: |dpatch| {dp:.3g}, A rel {da:.3g},"
@@ -318,11 +380,8 @@ def lk_kernel_phase(device, frames):
         imgs = torch.stack([t.levels[lvl][0] for t in tgts])
         ikw = dict(win=win, H=H, W=W, max_iters=opts.term_max_iters,
                    eps2=eps2, level_is_zero=(lvl == 0))
-        kout = lk_iter_level(imgs, *ref, cur, **ikw)
-        pout = lk.iter_level(imgs, *ref, cur, **ikw)
-        agree = float((kout[1] == pout[1]).float().mean())
-        both = kout[1] & pout[1] & ref[7]
-        dpos = (kout[0] - pout[0]).abs().amax(dim=-1)[both]
+        *pout, iters = lk.iter_level_counted(imgs, *ref, cur, **ikw)
+        n_iters = int(iters.sum())
         # A feature that does not converge within the iteration budget (near
         # the border of a coarse level, or a pan beyond LK's basin) stops
         # wherever the budget ends, and there last-bit differences (sum
@@ -330,25 +389,36 @@ def lk_kernel_phase(device, frames):
         # level-0 output at skips ±1 and ±2, where the clip's flows lie in
         # the basin, in full.
         near = torch.tensor([abs(s) <= 2 for s in IMAGE_SKIPS],
-                            device=device)[:, None].expand_as(both)[both]
+                            device=device)[:, None].expand(T, n)
+        kout = lk_iter_level(imgs, *ref, cur, **ikw)
+        agree = float((kout[1] == pout[1]).float().mean())
+        both = kout[1] & pout[1] & ref[5]
+        dpos = (kout[0] - pout[0]).abs().amax(dim=-1)[both]
         d_max = float(dpos.max())
-        d_near = float(dpos[near].max())
+        d_near = float(dpos[near[both]].max())
         share = float((dpos <= POS_ATOL).float().mean())
-        if lvl == 0:
-            pos_err = d_max
         if (agree < STATUS_AGREE or share < POS_SHARE
                 or (lvl == 0 and d_near > POS_ATOL)):
             fails.append(f"K3 level {lvl}: status agreement {agree:.5f}, "
                          f"share within {POS_ATOL} px {share:.5f}, max "
                          f"|dpos| at ±1/±2 {d_near:.3g}")
+        if lvl == 0:
+            pos_err = d_max
         t_k3 = (event_ms(lambda: lk_iter_level(imgs, *ref, cur, **ikw), 10),
                 event_ms(lambda: lk.iter_level(imgs, *ref, cur, **ikw), 3))
-        times[lvl] = (t_k2, t_k3)
+        b2 = k2_bound(n, hp, wp, win)
+        b3 = k3_bound(T, n, hp, wp, win, n_iters, lvl == 0)
+        times[lvl], bounds[lvl] = (t_k2, t_k3), (b2, b3)
         print(f"  level {lvl} ({W}x{H}): K2 {t_k2[0]:.4f} ms (plain "
-              f"{t_k2[1]:.4f}), |dpatch| {dp:.3g}, A rel {da:.3g}, gate "
-              f"agreement {gate:.5f}; K3 {t_k3[0]:.4f} ms (plain "
-              f"{t_k3[1]:.4f}), status agreement {agree:.5f}, |dpos| "
-              f"within {POS_ATOL} px {share:.6f}, max {d_max:.3g} (at ±1/±2 "
+              f"{t_k2[1]:.4f}; bound {b2[0]:.4f} by {b2[1]}, "
+              f"{b2[0] / t_k2[0]:.3f} of it), |dpatch| {dp:.3g}, A rel "
+              f"{da:.3g}, gate agreement {gate:.5f}")
+        print(f"    K3 {t_k3[0]:.4f} ms (plain {t_k3[1]:.4f}; bound "
+              f"{b3[0]:.4f} by {b3[1]}, {b3[0] / t_k3[0]:.3f} of it; "
+              f"{n_iters} iterations over {T * n} pairs, "
+              f"{n_iters / (T * n):.2f} a pair)")
+        print(f"    K3 status agreement {agree:.5f}, |dpos| within "
+              f"{POS_ATOL} px {share:.6f}, max {d_max:.3g} (at ±1/±2 "
               f"{d_near:.3g}), kept {float(kout[1].float().mean()):.4f}")
         cur = kout[0]
     torch.cuda.synchronize()
@@ -356,16 +426,20 @@ def lk_kernel_phase(device, frames):
         raise AssertionError("LK kernels vs plain:\n" + "\n".join(fails))
     k2 = tuple(sum(t[0][i] for t in times.values()) for i in (0, 1))
     k3 = tuple(sum(t[1][i] for t in times.values()) for i in (0, 1))
+    kb = tuple(sum(b[i][0] for b in bounds.values()) for i in (0, 1))
     print(f"  one source frame, all levels: K2 {k2[0]:.4f} ms (plain "
-          f"{k2[1]:.4f}), K3 {k3[0]:.4f} ms (plain {k3[1]:.4f})")
-    return patch_err, pos_err, times[0]
+          f"{k2[1]:.4f}, bound {kb[0]:.4f}), K3 {k3[0]:.4f} ms (plain "
+          f"{k3[1]:.4f}, bound {kb[1]:.4f}); LK kernels {k2[0] + k3[0]:.4f}"
+          f" ms")
+    return patch_err, pos_err, times[0], bounds[0]
 
 
 def analyze_phase(device, frames):
     """Analyze the panning clip twice (warm-up, timed), each into a fresh
-    DB, and check the timed run against the ground truth.  Returns the K2
-    and K3 launch counts of the timed run and its frames/s."""
-    from polychase_tpu.io.database import Database
+    DB, and check the timed run against the ground truth; a third run under
+    ``torch.profiler`` gives the device busy share.  Returns the K2 and K3
+    launch counts of the timed run and its frames/s."""
+    from polychase_tpu_torch.io.database import Database
     from polychase_tpu_torch.engine import lk
     from polychase_tpu_torch.engine.opticalflow import (
         IMAGE_SKIPS, VideoInfo, generate_optical_flow_database,
@@ -389,6 +463,8 @@ def analyze_phase(device, frames):
         path = os.path.join(td, "flow.db")
         seconds = run(path)
         launches = (lk_prep.launches, lk_iter.launches)
+        pwall, _, busy_ms, busy = profile_split(
+            lambda: run(os.path.join(td, "profiled.db")), device, ())
         db = Database(path)
         try:
             kps = [db.read_keypoints(f) for f in range(n)]
@@ -433,13 +509,16 @@ def analyze_phase(device, frames):
     if launches != (levels * solves, levels * solves):
         fails.append(f"K2/K3 launched {launches} times for {solves} solves "
                      f"of {levels} levels")
+    if not busy_ms > 0.0:
+        fails.append("the profiler saw no work on the device")
     if fails:
         raise AssertionError("analyze:\n" + "\n".join(fails))
     fps = n / seconds
     print(f"  K2 / K3 launches on the main path: {launches[0]} / "
           f"{launches[1]} (= {solves} solves x {levels} levels)")
     print(f"  analyze: {n} frames in {seconds:.3f} s = {fps:.2f} frames/s "
-          f"(warm-up run {warm:.3f} s)")
+          f"(warm-up run {warm:.3f} s); profiled run {pwall:.4f} s, device "
+          f"time {busy_ms:.3f} ms, busy share {busy:.4f}")
     return launches, fps
 
 
@@ -624,11 +703,16 @@ def main_path_phase(device, *, n_frames=N_FRAMES, keypoints=KEYPOINTS,
 # ---------------------------------------------------------------------------
 
 
-def profile_split(fn, device):
+def profile_split(fn, device, labels=REFINE_LABELS):
     """Run ``fn`` under ``torch.profiler``; returns the host-clock seconds,
-    the device time of each refine label (ms), the whole device time (ms)
-    and the busy share.  Each kernel counts once, under the op that
-    launched it; a label's time is that of the kernels under it."""
+    the device time of each of ``labels`` (ms), the device's busy time (ms)
+    and the busy share.  A label's time is that of the kernels under the
+    ops it encloses.  The busy time is the union of the intervals of every
+    kernel, copy and fill the device ran, whether a torch op launched it or
+    not (K1, K2 and K3 launch through ctypes, outside any op).  The spans
+    the profiler draws on the device for ``record_function`` labels cover
+    idle gaps: they carry their host-side range's name, which no kernel or
+    copy shares, and are left out by it."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -637,19 +721,31 @@ def profile_split(fn, device):
         fn()
         torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
-    events = prof.events()
-    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
-    busy_us = sum(e.self_device_time_total for e in cpu)
+    cpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
     split = {lbl: sum(e.device_time_total for e in cpu if e.name == lbl) / 1e3
-             for lbl in REFINE_LABELS}
-    return wall, split, busy_us / 1e3, busy_us / 1e6 / wall
+             for lbl in labels}
+    host_names = {e.name for e in cpu}
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA
+                   and e.name() not in host_names)
+    busy_ns, end = 0, None
+    for lo, hi in spans:
+        if end is None or lo > end:
+            busy_ns += hi - lo
+            end = hi
+        elif hi > end:
+            busy_ns += hi - end
+            end = hi
+    return wall, split, busy_ns / 1e6, busy_ns / 1e9 / wall
 
 
 def band_solve_check(device, db_path, traj, mesh):
     """One normal system of the problem at ``traj``, solved banded and
     dense: returns (nb, bs), both times (ms, CUDA events) and the relative
     difference of the two steps."""
-    from polychase_tpu.io.database import Database
+    from polychase_tpu_torch.io.database import Database
     from polychase_tpu_torch.engine import refiner as R
     from polychase_tpu_torch.engine.levmarq import CAUCHY
 
@@ -878,7 +974,7 @@ def main() -> None:
     frames = panning_clip(np.random.default_rng(0), PAN_FRAMES, WIDTH,
                           HEIGHT, PAN_STEP)
     print("LK kernel phase (K2, K3 vs plain torch, on the card):")
-    patch_err, pos_err, lk_times = lk_kernel_phase(device, frames)
+    patch_err, pos_err, lk_times, lk_bounds = lk_kernel_phase(device, frames)
     print("analyze phase (generate_optical_flow_database on the card):")
     lk_launches, analyze_fps = analyze_phase(device, frames)
     print(f"analyze {analyze_fps:.2f} frames/s at 1920x1080 on {smi}")
@@ -894,6 +990,9 @@ def main() -> None:
     print(f"pin drag {pin_ms:.4f} ms per 8-pin solve on {smi}")
 
     (k2_ms, k2_plain), (k3_ms, k3_plain) = lk_times
+    (k2_bound_ms, k2_by), (k3_bound_ms, k3_by) = lk_bounds
+    k1_ms, k1_plain, (k1_bound_ms, k1_by) = times[6]
+    # No single PyTorch call computes any of the three (library_ms null).
     kernels = [{
         "name": "pnp_lm",
         "route": "cuda",
@@ -901,8 +1000,11 @@ def main() -> None:
         "replaces": "polychase_tpu/kernels/pnp_pallas.py:183",
         "launches": launches + pin_launches,
         "max_abs_err": max(max_err, path_err, pin_err),
-        "ms": times[6][0],
-        "plain_ms": times[6][1],
+        "ms": k1_ms,
+        "plain_ms": k1_plain,
+        "bound_ms": k1_bound_ms,
+        "bound_by": k1_by,
+        "library_ms": None,
     }, {
         "name": "lk_prep",
         "route": "cuda",
@@ -912,6 +1014,9 @@ def main() -> None:
         "max_abs_err": patch_err,
         "ms": k2_ms,
         "plain_ms": k2_plain,
+        "bound_ms": k2_bound_ms,
+        "bound_by": k2_by,
+        "library_ms": None,
     }, {
         "name": "lk_iter",
         "route": "cuda",
@@ -921,6 +1026,9 @@ def main() -> None:
         "max_abs_err": pos_err,
         "ms": k3_ms,
         "plain_ms": k3_plain,
+        "bound_ms": k3_bound_ms,
+        "bound_by": k3_by,
+        "library_ms": None,
     }]
     print(smi)
     print(json.dumps({"kernels": kernels}))

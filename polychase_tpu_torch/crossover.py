@@ -108,7 +108,7 @@ def refresh_route_table(device, spheres=SPHERES, frames=250, keypoints=128,
                         reps=3):
     """[(triangles, device ms, BVH ms, BVH build ms, prim agreement)] for
     one prim refresh of config 4's rays."""
-    from polychase_tpu import native
+    from . import native
 
     from .engine import refiner as R
     from .engine.geometry import Mesh

@@ -8,7 +8,8 @@ per-grid-block threshold-to-zero, the 3×3 dilation NMS away from the 1-px
 border, and a top-k of the candidates on a 2×2 block max.  The sequential
 tail, the quality sort (ties: later row-major position first) and the
 greedy min-distance suppression, runs on the host in the native
-``gftt_sort_suppress`` of ``polychase_tpu.native``.
+``gftt_sort_suppress`` of the port's ``native`` (numpy where it is
+missing).
 
 The reference suppresses on the device for frames of 2 MP and more; both
 routes give the same corners, and this port takes the host route at every
@@ -274,7 +275,7 @@ def gftt_dispatch(image, mask=None, options: GFTTOptions = GFTTOptions(),
 def _native_sort_suppress(vals, lin, w, h, min_distance, max_corners):
     """Fused C quality sort + greedy suppression; accepted candidate indices
     in acceptance order, or None when the native library is absent."""
-    from polychase_tpu import native
+    from .. import native
 
     fn = native.native_fn(
         "gftt_sort_suppress",

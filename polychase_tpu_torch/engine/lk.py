@@ -238,9 +238,9 @@ def prep_level(img_pad, dx_pad, dy_pad, pts, *, win: int, H: int, W: int,
     """Source-frame prep of one level (plain version of K2).
 
     ``pts`` (N, 2) are positions at this level's scale.  Returns
-    ``(ipatch, dxi, dyi, a11, a12, a22, invd, ok)``: the template and
-    derivative patches (win, win, N), feature-minor, and the normal matrix
-    (scaled 2⁻²⁰), its inverse determinant and the gate (bounds, min
+    ``(patches, a11, a12, a22, invd, ok)``: the template and derivative
+    patches (N, 3, win, win) (image, dx, dy), feature-major, and the normal
+    matrix (scaled 2⁻²⁰), its inverse determinant and the gate (bounds, min
     eigenvalue ≥ ``min_eig_thr``, det ≥ FLT_EPSILON) as (N,) vectors.
     """
     pad = win + 2
@@ -265,14 +265,10 @@ def prep_level(img_pad, dx_pad, dy_pad, pts, *, win: int, H: int, W: int,
     ok = (_in_bounds(ix, iy, win, H, W) & (min_eig >= min_eig_thr)
           & (D >= _FLT_EPSILON))
     invd = torch.where(ok, 1.0 / torch.where(ok, D, 1.0), 0.0)
-
-    def minor(p):
-        return p.permute(1, 2, 0).contiguous()
-
-    return minor(ip), minor(dxi), minor(dyi), a11, a12, a22, invd, ok
+    return torch.stack([ip, dxi, dyi], dim=1), a11, a12, a22, invd, ok
 
 
-def iter_level(imgs_pad, ipatch, dxi, dyi, a11, a12, a22, invd, ok, pts, *,
+def iter_level(imgs_pad, patches, a11, a12, a22, invd, ok, pts, *,
                win: int, H: int, W: int, max_iters: int, eps2: float,
                level_is_zero: bool):
     """LK iteration of one level for T targets (plain version of K3).
@@ -285,15 +281,26 @@ def iter_level(imgs_pad, ipatch, dxi, dyi, a11, a12, a22, invd, ok, pts, *,
     status (T, N) bool, err (T, N))``: status and err are final only at
     level 0 (elsewhere all True and 0).
     """
+    return iter_level_counted(
+        imgs_pad, patches, a11, a12, a22, invd, ok, pts, win=win, H=H, W=W,
+        max_iters=max_iters, eps2=eps2, level_is_zero=level_is_zero)[:3]
+
+
+def iter_level_counted(imgs_pad, patches, a11, a12, a22, invd, ok, pts, *,
+                       win: int, H: int, W: int, max_iters: int, eps2: float,
+                       level_is_zero: bool):
+    """:func:`iter_level`, and the iterations each pair needed (T, N)
+    int32: those in which it was active and inside the image, each of which
+    samples its window once.  The work a kernel must do for these inputs is
+    counted from them."""
     T, N = pts.shape[:2]
     pad = win + 2
-    I = ipatch.permute(2, 0, 1)
-    GX = dxi.permute(2, 0, 1)
-    GY = dyi.permute(2, 0, 1)
+    I, GX, GY = patches[:, 0], patches[:, 1], patches[:, 2]
     nxt = pts
     active = ok.expand(T, N).clone()
     status = active.clone() if level_is_zero else torch.ones_like(active)
     prev = torch.zeros_like(pts)
+    iters = torch.zeros((T, N), dtype=torch.int32, device=pts.device)
 
     def sample(p):
         ix, iy, bx, by = _origin(p, win)
@@ -308,6 +315,7 @@ def iter_level(imgs_pad, ipatch, dxi, dyi, a11, a12, a22, invd, ok, pts, *,
         if level_is_zero:
             status = status & ~(active & oob)
         active = active & ~oob
+        iters += active
         diff = (J - I) * 32.0
         b1 = torch.sum(diff * GX, dim=(2, 3)) * _FLT_SCALE
         b2 = torch.sum(diff * GY, dim=(2, 3)) * _FLT_SCALE
@@ -332,7 +340,7 @@ def iter_level(imgs_pad, ipatch, dxi, dyi, a11, a12, a22, invd, ok, pts, *,
         err = torch.sum(torch.abs(J - I), dim=(2, 3)) / float(win * win)
     else:
         err = torch.zeros((T, N), dtype=torch.float32, device=pts.device)
-    return nxt, status, err
+    return nxt, status, err, iters
 
 
 def _lk_level(prev_level: Level, next_imgs, prev_pts, next_pts, *,

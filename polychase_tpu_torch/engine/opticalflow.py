@@ -30,7 +30,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from polychase_tpu.io.database import Database
+from ..io.database import Database
 
 from ..backend import as_device
 from .gftt import GFTTOptions, gftt_dispatch, gftt_finish

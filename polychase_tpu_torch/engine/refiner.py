@@ -25,7 +25,7 @@ accepted step rides in the next iteration's read; the progress callback of
 that step runs once it has landed, before anything of the next iteration is
 applied, so callback, cancel and stats keep the reference's semantics.
 The prim refresh casts on the device, or through the host BVH of
-``polychase_tpu.native`` for meshes of ``BVH_TRIANGLE_THRESHOLD`` triangles
+the port's ``native`` for meshes of ``BVH_TRIANGLE_THRESHOLD`` triangles
 or more.
 
 Not ported, by design: the device-resident LM chunk program
@@ -48,7 +48,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from polychase_tpu.io.database import Database
+from ..io.database import Database
 
 from ..backend import as_device
 from . import camera as C
@@ -326,7 +326,7 @@ def _refresh_routing(mesh: Mesh) -> bool:
     ``BVH_TRIANGLE_THRESHOLD`` triangles, where the native library loads."""
     if mesh.num_triangles < BVH_TRIANGLE_THRESHOLD:
         return False
-    from polychase_tpu import native
+    from .. import native
 
     return native.available()
 
@@ -368,7 +368,7 @@ def _make_prim_refresher(data: RefinerData, mesh: Mesh, model, model_inv,
             )
         return refresh
 
-    from polychase_tpu import native
+    from .. import native
 
     bvh = native.BvhRaycaster(
         mesh.vertices.cpu().numpy(),

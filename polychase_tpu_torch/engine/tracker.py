@@ -27,7 +27,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from polychase_tpu.io.database import Database
+from ..io.database import Database
 
 from ..backend import as_device
 from ..kernels.pnp_lm import solve_arrays_lm

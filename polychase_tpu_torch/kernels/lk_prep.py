@@ -1,10 +1,11 @@
 """K2: the LK source-frame prep kernel (``csrc/lk_prep.cu``) and its wrapper.
 
 Replaces the TPU kernel ``polychase_tpu/kernels/lk_pallas.py
-::_make_extract_kernel`` and the XLA tail of ``lk_prepare_level``: one
-thread per feature takes the integer windows of the padded image, dx and
-dy, blends them to win×win, and builds the normal matrix, its gate, invD
-and ok.  The source pyramid is shared by every target, so K2 runs once per
+::_make_extract_kernel`` and the XLA tail of ``lk_prepare_level``: a group
+of 16 lanes per feature, spread over the rows of its window, blends the
+padded image, dx and dy to win×win patches written feature-major (one
+feature's (3, win, win) values contiguous, the copy K3 stages), and builds
+the normal matrix by shuffle reductions, its gate, invD and ok.  The source pyramid is shared by every target, so K2 runs once per
 level per source frame.  The plain torch version is
 ``engine.lk.prep_level``.
 
@@ -52,7 +53,7 @@ def lk_prep_level(img_pad, dx_pad, dy_pad, pts, *, win: int, H: int, W: int,
                   min_eig_thr: float):
     """Same contract as ``engine.lk.prep_level``: ``img_pad``, ``dx_pad``,
     ``dy_pad`` (H + 2(win+2), W + 2(win+2)), ``pts`` (N, 2) at the level's
-    scale → ``(ipatch, dxi, dyi (win, win, N), a11, a12, a22, invd (N),
+    scale → ``(patches (N, 3, win, win), a11, a12, a22, invd (N),
     ok (N) bool)``."""
     global launches
     dev = pts.device
@@ -70,7 +71,7 @@ def lk_prep_level(img_pad, dx_pad, dy_pad, pts, *, win: int, H: int, W: int,
     for name, t in (("img_pad", img_pad), ("dx_pad", dx_pad),
                     ("dy_pad", dy_pad)):
         check_level(name, t, dev, (hp, wp))
-    patches = torch.empty((3, win, win, n), dtype=torch.float32, device=dev)
+    patches = torch.empty((n, 3, win, win), dtype=torch.float32, device=dev)
     vec = torch.empty((4, n), dtype=torch.float32, device=dev)
     ok = torch.empty((n,), dtype=torch.bool, device=dev)
     if n:
@@ -82,5 +83,4 @@ def lk_prep_level(img_pad, dx_pad, dy_pad, pts, *, win: int, H: int, W: int,
         if rc != 0:
             raise RuntimeError(f"lk_prep kernel launch failed: CUDA error {rc}")
         launches += 1
-    return (patches[0], patches[1], patches[2], vec[0], vec[1], vec[2],
-            vec[3], ok)
+    return patches, vec[0], vec[1], vec[2], vec[3], ok

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from polychase_tpu.io.database import Database
+from .io.database import Database
 
 from .engine import camera as C
 from .engine.geometry import Mesh

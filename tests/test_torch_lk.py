@@ -96,15 +96,19 @@ def test_prep_level_matches_pallas_interpret():
         pal = [np.asarray(a) for a in lkp.lk_prepare_level(
             *data[lvl][:3], jnp.asarray(lp), win=win, H=H, W=W,
             min_eig_thr=OPTS.min_eigen_threshold, interpret=True)]
-        assert ours[0].shape == (win, win, n)
-        for a, b in zip(ours[:3], pal[:3]):
-            np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
-        for a, b in zip(ours[3:6], pal[3:6]):
+        # The port's patches are feature-major (N, 3, win, win); the
+        # Pallas arm's are three feature-minor (win, win, N) planes.
+        assert ours[0].shape == (n, 3, win, win)
+        for k in range(3):
+            np.testing.assert_allclose(ours[0][:, k],
+                                       pal[k].transpose(2, 0, 1), rtol=0,
+                                       atol=1e-4)
+        for a, b in zip(ours[1:4], pal[3:6]):
             np.testing.assert_allclose(a, b, rtol=1e-5,
                                        atol=1e-5 * np.abs(b).max())
-        np.testing.assert_allclose(ours[6], pal[6], rtol=1e-4)
-        np.testing.assert_array_equal(ours[7], pal[7])
-        assert ours[7].mean() > 0.9
+        np.testing.assert_allclose(ours[4], pal[6], rtol=1e-4)
+        np.testing.assert_array_equal(ours[5], pal[7])
+        assert ours[5].mean() > 0.9
 
 
 def test_prep_level_gates_out_of_bounds_and_nan():
@@ -117,8 +121,8 @@ def test_prep_level_gates_out_of_bounds_and_nan():
                         [5.0, 1e9], [-1e30, -1e30], [50.0, 40.0]])
     out = TL.prep_level(img, dx, dy, pts, win=OPTS.window_size, H=H, W=W,
                         min_eig_thr=OPTS.min_eigen_threshold)
-    assert out[7].tolist() == [False] * 5 + [True]
-    assert (out[6][:5] == 0).all()
+    assert out[5].tolist() == [False] * 5 + [True]
+    assert (out[4][:5] == 0).all()
 
 
 def test_lk_level_matches_jax_xla():
@@ -155,6 +159,36 @@ def test_lk_level_matches_jax_xla():
         if lvl == 0:
             np.testing.assert_allclose(te[0].numpy()[both],
                                        np.asarray(je)[both], atol=1e-3)
+
+
+def test_iter_level_counts_the_iterations_each_pair_needs():
+    """The counted plain iteration returns what ``iter_level`` returns and,
+    per pair, the windows it sampled: none for a gated-out feature, one for
+    a feature tracked into its own frame (its first step converges), at
+    most ``max_iters``."""
+    img1, img2 = _make_pair()
+    _, g1 = _levels_both(img1)
+    _, g2 = _levels_both(img2)
+    img, dx, dy, (H, W) = g1.levels[0]
+    rng = np.random.default_rng(3)
+    pts = torch.as_tensor(
+        rng.uniform((12, 12), (W - 12, H - 12), (64, 2)).astype(np.float32))
+    prep = list(TL.prep_level(img, dx, dy, pts, win=OPTS.window_size, H=H,
+                              W=W, min_eig_thr=OPTS.min_eigen_threshold))
+    prep[5] = prep[5].clone()
+    prep[5][:4] = False
+    imgs = torch.stack([img, g2.levels[0][0]])
+    kw = dict(win=OPTS.window_size, H=H, W=W, max_iters=OPTS.term_max_iters,
+              eps2=EPS2, level_is_zero=True)
+    guess = pts.expand(2, *pts.shape).contiguous()
+    *out, iters = TL.iter_level_counted(imgs, *prep, guess, **kw)
+    for a, b in zip(out, TL.iter_level(imgs, *prep, guess, **kw)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert iters.dtype == torch.int32 and iters.shape == (2, 64)
+    assert (iters[:, :4] == 0).all()
+    assert (iters[0, 4:][prep[5][4:]] == 1).all()
+    assert int(iters[1].max()) <= OPTS.term_max_iters
+    assert int(iters[1, 4:].sum()) > 60
 
 
 def test_multi_target_matches_xla_and_pallas_interpret():

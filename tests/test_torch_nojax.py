@@ -1,6 +1,8 @@
-"""The port runs with jax unimportable: a tiny track, a tiny analyze, and a
-tiny refine followed by a pin drag, each in a fresh process whose import
-system refuses ``jax`` and ``jaxlib``."""
+"""The port runs with jax and the JAX package unimportable: a tiny track, a
+tiny analyze, and a tiny refine followed by a pin drag, each in a fresh
+process whose import system refuses ``jax``, ``jaxlib``, ``polychase_tpu``
+and every ``polychase_tpu.*`` module (``polychase_tpu_torch`` is another
+top-level name and stays importable)."""
 
 import os
 import subprocess
@@ -16,13 +18,20 @@ REFUSE_JAX = textwrap.dedent(
     import sys
     import tempfile
 
+    REFUSED = ("jax", "jaxlib", "polychase_tpu")
+
     class RefuseJax(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib"):
+            if name.split(".")[0] in REFUSED:
                 raise ImportError(f"{name} is refused in this process")
             return None
 
     sys.meta_path.insert(0, RefuseJax())
+
+    def assert_nothing_leaked():
+        leaked = sorted(m for m in sys.modules
+                        if m.split(".")[0] in REFUSED)
+        assert not leaked, leaked
     """
 )
 
@@ -64,8 +73,7 @@ SCRIPT = REFUSE_JAX + textwrap.dedent(
     for r in got:
         dt = np.linalg.norm(r.pose.t.numpy() - poses[r.frame][1])
         assert dt < 5e-3, (r.frame, dt)
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
-    assert not leaked, leaked
+    assert_nothing_leaked()
     print("tracked", len(got), "frames without jax")
     """
 )
@@ -78,7 +86,7 @@ ANALYZE = REFUSE_JAX + textwrap.dedent(
 
     torch.set_num_threads(1)
 
-    from polychase_tpu.io.database import Database
+    from polychase_tpu_torch.io.database import Database
     from polychase_tpu_torch.engine.opticalflow import (
         IMAGE_SKIPS, VideoInfo, generate_optical_flow_database,
     )
@@ -104,8 +112,7 @@ ANALYZE = REFUSE_JAX + textwrap.dedent(
                         med = np.median(d, axis=0)
                         assert np.abs(med + s * np.array([2, 1])).max() < 0.05
         db.close()
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
-    assert not leaked, leaked
+    assert_nothing_leaked()
     print("analyzed", pairs, "pairs without jax")
     """
 )
@@ -167,8 +174,7 @@ REFINE_AND_PIN = REFUSE_JAX + textwrap.dedent(
                               TRANSFORM_CAMERA, device=dev)
     assert torch.isfinite(out.view_matrix).all()
     assert not torch.equal(out.view_matrix, scene.view_matrix)
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
-    assert not leaked, leaked
+    assert_nothing_leaked()
     print("refined and pinned without jax")
     """
 )

@@ -441,10 +441,10 @@ def test_refine_empty_database_is_graceful(scene10, tmp_path):
 def test_bvh_route_matches_device_route(scene10, monkeypatch):
     """The host-BVH prim refresh gives the device sweep's prims and cost,
     and a whole refine through it the device route's final cost."""
-    from polychase_tpu import native
+    from polychase_tpu_torch import native
 
     if not native.available():
-        pytest.skip("native BVH unavailable")
+        pytest.skip("the port's host library is unavailable")
     mesh = convert.mesh(scene10["mesh"], device="cpu")
     traj = convert.camera_trajectory(scene10["traj"], device="cpu")
     db = Database(scene10["db"])
