@@ -11,9 +11,17 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    (csrc/lk_prep.cu), K3 the LK iteration (csrc/lk_iter.cu).
 3. K1 phase: the kernel against its plain torch version on the card,
    over every loss × function_tol × (opt_f, opt_pp), points behind the
-   camera, all points masked, N = 16384 and a batch of 8 solves, with the
-   tolerances of tests/test_pnp_pallas.py; prints both times per solve and
-   the kernel's bound.
+   camera, all points masked, N = 16384 and a batch of 8 solves, and over
+   the launch shapes: N on each side of every step of
+   ``pnp_lm.launch_shape`` (one warp, then clusters of 1 to 16 blocks), of
+   a cluster's staged capacity, one N on the streamed route, 3- to 8-point
+   pin solves with a free focal, and a batch of 8 with random masks, with
+   the tolerances of tests/test_pnp_pallas.py.  Prints both times per solve
+   at N = 8, 16,384 (6 and 9 parameters) and for the batches, with each
+   launch shape, the time per LM iteration, a measured floor (the same
+   launch and iteration count with one point per block: the reduction and
+   decision chain alone) and the kernel's bound; then the launch-shape
+   sweep from which ``BLOCK_POINTS`` and ``WARP_MAX`` were set.
 4. LK kernel phase: K2 and K3 against their plain torch versions at every
    level of one source frame of a 1920×1080 panning clip (config 1b's:
    blurred noise panning (7, 4) px per frame), with its real GFTT corners
@@ -35,7 +43,8 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    focal length and principal point.  Checks that every solve launched K1
    and that every pose lies within the ground-truth thresholds, and holds
    K1 against its plain version on solver inputs recorded from a warm-up
-   run of the same path.
+   run of the same path (N = 8192), timing the last one with its launch
+   shape, time per LM iteration and floor.
 7. Refine phase (config 4, ``benchmarks/run_all.py:348-398``): a 250-frame
    1920×1080, f = 1800 orbit clip over the 24×32 sphere (1,472 triangles)
    with 128 keypoints per frame and 0.3 px flow noise, refined on the card
@@ -127,37 +136,9 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 
 
-def pnp_scene(rng, n, *, opencv=True, behind=0, n_masked=0, f_err=1.0,
-              pp_err=(0.0, 0.0)):
-    """Random points in front of the camera, their noisy projections and a
-    perturbed warm start (the scenes of tests/test_pnp_pallas.py)."""
-    from polychase_tpu_torch.engine.pose import quat_to_mat_np
-
-    sign = 1.0 if opencv else -1.0
-    X = rng.normal(size=(n, 3)).astype(np.float32)
-    X[:, 2] += 6.0 * sign
-    X[:behind, 2] -= 14.0 * sign
-    q_gt = np.array([0.99, 0.05, -0.08, 0.03])
-    q_gt /= np.linalg.norm(q_gt)
-    t_gt = np.array([0.1, -0.2, 0.3])
-    Z = X.astype(np.float64) @ quat_to_mat_np(q_gt).T + t_gt
-    x = np.stack([FOCAL * Z[:, 0] / Z[:, 2] + 960.0,
-                  FOCAL * Z[:, 1] / Z[:, 2] + 540.0], axis=-1)
-    x = (x + rng.normal(scale=0.4, size=(n, 2))).astype(np.float32)
-    mask = np.ones(n, bool)
-    mask[n - n_masked:] = False
-    q0 = q_gt + np.array([0.01, -0.02, 0.015, 0.01])
-    q0 /= np.linalg.norm(q0)
-    params = np.array(
-        [*q0, 0.15, -0.1, 0.2, FOCAL * f_err, FOCAL * f_err,
-         960.0 + pp_err[0], 540.0 + pp_err[1], 1.0, WIDTH, HEIGHT, sign,
-         12.0], np.float32,
-    )
-    return X, x, mask.astype(np.float32), mask, params
-
-
 def kernel_cases(rng, n):
     from polychase_tpu_torch.engine.levmarq import BundleOptions
+    from polychase_tpu_torch.synthetic import pnp_scene
 
     cases = []
     for loss in (0, 1, 2):
@@ -192,6 +173,51 @@ def kernel_cases(rng, n):
     return cases
 
 
+def shape_cases(rng):
+    """K1's launch-shape cases: N on each side of every step of
+    ``launch_shape`` (one warp to one block, each doubling of the cluster,
+    the largest cluster's staged capacity), one N on the streamed route,
+    3- to 8-point pin solves with a free focal (Trivial loss, as pin mode
+    solves them), and a batch of 8 with random masks at the main path's
+    N."""
+    from polychase_tpu_torch.engine.levmarq import BundleOptions
+    from polychase_tpu_torch.kernels import pnp_lm
+    from polychase_tpu_torch.synthetic import pnp_scene
+
+    huber = BundleOptions(max_iterations=50, loss_type=1, function_tol=1e-5)
+    steps = [pnp_lm.WARP_MAX]
+    c = 1
+    while c < pnp_lm.MAX_CLUSTER:
+        steps.append(pnp_lm.BLOCK_POINTS * c)
+        c *= 2
+    steps.append(pnp_lm.MAX_CLUSTER * pnp_lm.STAGE_MAX)
+    cases = []
+    for b in steps:
+        for n in (b, b + 1):
+            cases.append((f"shape_n{n}", [pnp_scene(rng, n, n_masked=n // 8)],
+                          False, False, huber))
+    cases.append(("streamed_n200000",
+                  [pnp_scene(rng, 200_000, n_masked=1000)], False, False,
+                  huber))
+    # A few points with a free focal leave a flat focal-depth valley, where
+    # rounding moves the LM's exit point, in the two reference solvers (the
+    # JAX package's and the plain torch one) as in the kernel: the points
+    # are spread twice as wide as the other cases', with 1 px of mismatch.
+    pins = np.random.default_rng(7)
+    for n in range(3, 9):
+        cases.append((f"pin{n}", [pnp_scene(pins, n, f_err=0.95, noise=1.0,
+                                            spread=2.0)],
+                      True, False, BundleOptions(loss_type=0)))
+    batch = []
+    for _ in range(8):
+        scene = pnp_scene(rng, 8192)
+        scene[3][:] = rng.random(8192) > rng.uniform(0.05, 0.5)
+        scene[2][:] = scene[3]
+        batch.append(scene)
+    cases.append(("batch8_random_masks", batch, False, False, huber))
+    return cases
+
+
 def to_device(scenes, device):
     return [torch.as_tensor(np.stack([s[i] for s in scenes]), device=device)
             for i in range(5)]
@@ -211,12 +237,19 @@ def compare(name, got, ref, params, opt):
             fails.append(f"{name}: initial cost did not overflow to inf")
         if not np.array_equal(got[:, :7], params[:, :7]):
             fails.append(f"{name}: pose moved though every step was inf")
+    # Three points: the intrinsics stay frozen and the pose fits them
+    # exactly, so the cost is rounding noise and is not compared (as
+    # tests/test_pnp_pallas.py::test_intrinsics_gate_3_points).
+    exact_fit = name == "pin3"
+    if exact_fit and not np.array_equal(got[:, 7:11], params[:, 7:11]):
+        fails.append(f"{name}: intrinsics moved with 3 points")
     if dpose > atol:
         fails.append(f"{name}: pose differs by {dpose:.3g} > {atol}")
     dratio = float(np.abs(got[:, 18] - ref[:, 18]).max())
     if dratio > RATIO_ATOL:
         fails.append(f"{name}: inlier ratio differs by {dratio:.3g}")
-    if not np.allclose(got[:, 13], ref[:, 13], rtol=COST_RTOL, atol=0.0):
+    if not exact_fit and not np.allclose(got[:, 13], ref[:, 13],
+                                         rtol=COST_RTOL, atol=0.0):
         fails.append(f"{name}: cost {got[:, 13]} vs plain {ref[:, 13]}")
     if opt and not np.allclose(got[:, 7:11], ref[:, 7:11], rtol=INTR_RTOL,
                                atol=INTR_ATOL):
@@ -224,11 +257,19 @@ def compare(name, got, ref, params, opt):
     return dpose, fails
 
 
+# Cycles the device sleeps before a timed run (20 ms at the H100's 1980 MHz
+# at most): the run's launches queue behind it, so the events time the
+# device's work, not the host's issue rate (K1 takes less time than its
+# wrapper's host side, ~40 us a call, and a run issues up to 100 calls).
+SLEEP_CYCLES = 40_000_000
+
+
 def event_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -237,13 +278,80 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def k1_shape(args, kw):
+    """The launch shape K1 takes for these inputs on this card."""
+    from polychase_tpu_torch.kernels import pnp_lm
+
+    S, N = args[0].shape[:2]
+    return pnp_lm.fitted_shape(S, N, 9 if (kw["opt_f"] or kw["opt_pp"]) else 6,
+                               int(kw["opts"].loss_type))
+
+
+def k1_floor(args, kw, iterations):
+    """A measured floor of one solve, not a bound: K1 at the launch shape
+    of these inputs, run for the same number of LM iterations with one
+    point per block (the first valid points of the first solve) and every
+    exit but max_iterations off, so that its time is the launch, the
+    staging and the reduction and decision chain alone.  Returns (ms per
+    solve, iterations run, ms at no iteration: the launch and one pass)."""
+    from dataclasses import replace
+
+    from polychase_tpu_torch.kernels import pnp_lm
+
+    X, x, w, m, p = args
+    shape = k1_shape(args, kw)
+    idx = torch.nonzero(m[0])[: shape.cluster, 0]
+    sub = [t[:1, idx].contiguous() for t in (X, x, w, m)] + [p[:1]]
+    ms, runs = [], []
+    for its in (iterations, 0):
+        fkw = dict(opt_f=kw["opt_f"], opt_pp=kw["opt_pp"],
+                   opts=replace(kw["opts"], max_iterations=its,
+                                gradient_tol=0.0, step_tol=0.0,
+                                function_tol=0.0, max_lambda=float("inf")),
+                   shape=shape._replace(per_block=1, staged=True))
+        runs.append(int(pnp_lm.launch(*sub, **fkw)[0, 11]))
+        ms.append(event_ms(lambda: pnp_lm.launch(*sub, **fkw), 20))
+    return ms[0], runs[0], ms[1]
+
+
+def k1_report(label, args, kw, got, plain_reps):
+    """Times K1 and its plain version on these inputs and prints the launch
+    shape, the time per LM iteration and the floor; returns (kernel ms,
+    plain ms, ms per iteration, floor ms)."""
+    from polychase_tpu_torch.engine.pnp import solve_arrays
+    from polychase_tpu_torch.kernels.pnp_lm import solve_arrays_lm
+
+    k = event_ms(lambda: solve_arrays_lm(*args, **kw), 20)
+    p = event_ms(lambda: solve_arrays(*args, **kw), plain_reps)
+    shape = k1_shape(args, kw)
+    iters = int(got[:, 11].max())
+    floor, floor_iters, fixed = k1_floor(args, kw, iters)
+    per_iter = k / max(iters, 1)
+    print(f"  {label}: kernel {k:.4f} ms, plain {p:.4f} ms per solve; "
+          f"shape {shape.cluster} x {shape.threads} threads, "
+          f"{shape.per_block} points a block, "
+          f"{'staged' if shape.staged else 'streamed'}; {iters} iterations, "
+          f"{per_iter * 1e3:.2f} us each; floor {floor:.4f} ms "
+          f"({floor_iters} iterations, one point a block: {fixed:.4f} ms "
+          f"fixed + {(floor - fixed) / max(floor_iters, 1) * 1e3:.2f} us an "
+          f"iteration), {floor / k:.3f} of the solve")
+    return k, p, per_iter, floor
+
+
+# The cases k1_report times: the 8-point pin solve, the two 16,384-point
+# Huber solves (6 and 9 parameters) and the two batches of 8.
+K1_TIMED = ("pin8", "loss1_ftol1e-05_f0_pp0", "loss1_ftol1e-05_f1_pp1",
+            "batch8", "batch8_random_masks")
+
+
 def kernel_phase(device, n=N_POINTS, seed=0):
     from polychase_tpu_torch.engine.pnp import solve_arrays
     from polychase_tpu_torch.kernels.pnp_lm import solve_arrays_lm
 
     rng = np.random.default_rng(seed)
     max_err, fails, times = 0.0, [], {}
-    for name, scenes, opt_f, opt_pp, opts in kernel_cases(rng, n):
+    for name, scenes, opt_f, opt_pp, opts in (kernel_cases(rng, n)
+                                              + shape_cases(rng)):
         args = to_device(scenes, device)
         kw = dict(opt_f=opt_f, opt_pp=opt_pp, opts=opts)
         got = solve_arrays_lm(*args, **kw).cpu().numpy()
@@ -252,24 +360,88 @@ def kernel_phase(device, n=N_POINTS, seed=0):
                            opt_f or opt_pp)
         max_err = max(max_err, dpose)
         fails += f
+        sh = k1_shape(args, kw)
         print(f"  {name:28s} iters kernel {got[:, 11].astype(int).tolist()} "
-              f"plain {ref[:, 11].astype(int).tolist()} |dpose| {dpose:.3g}"
-              f"{'  FAIL' if f else ''}")
-        if name in ("loss1_ftol1e-05_f0_pp0", "loss1_ftol1e-05_f1_pp1"):
-            np_ = 9 if (opt_f or opt_pp) else 6
-            times[np_] = (
-                event_ms(lambda: solve_arrays_lm(*args, **kw), 20),
-                event_ms(lambda: solve_arrays(*args, **kw), 3),
-                k1_bound(n, np_, int(got[0, 11])),
-            )
+              f"plain {ref[:, 11].astype(int).tolist()} |dpose| {dpose:.3g} "
+              f"[{sh.cluster}x{sh.threads}, {sh.per_block}"
+              f"{'' if sh.staged else ' streamed'}]{'  FAIL' if f else ''}")
+        if name in K1_TIMED:
+            N = args[0].shape[1]
+            times[name] = k1_report(
+                f"{name} (S={len(scenes)}, N={N})", args, kw, got,
+                3 if N > 1000 else 5)
+            if name.startswith("loss1"):
+                times[name] += (k1_bound(n, 9 if opt_f else 6,
+                                         int(got[0, 11])),)
     torch.cuda.synchronize()
     if fails:
         raise AssertionError("kernel vs plain:\n" + "\n".join(fails))
-    for np_, (k, p, b) in sorted(times.items()):
-        print(f"  per solve, N={n}, {np_} params, Huber, ftol 1e-5: "
-              f"kernel {k:.4f} ms, plain {p:.4f} ms; bound {b[0]:.6f} ms "
-              f"by {b[1]}, {b[0] / k:.4f} of it")
+    for name in K1_TIMED[1:3]:
+        k, _, _, _, b = times[name]
+        print(f"  {name}: bound {b[0]:.6f} ms by {b[1]}, {b[0] / k:.4f} of "
+              f"the kernel's time")
     return max_err, times
+
+
+def k1_shape_sweep(device, seed=3):
+    """The table from which ``pnp_lm.BLOCK_POINTS`` and ``WARP_MAX`` were
+    set: K1's device ms per solve of a 6-parameter Huber, ftol 1e-5 solve
+    at N = 4096 to 32768 on clusters of 1 to 16 blocks, and the chosen
+    shape with its slices streamed from L2; then, at small N, one warp
+    against one block of 256 threads."""
+    from polychase_tpu_torch.engine.levmarq import BundleOptions
+    from polychase_tpu_torch.engine.pnp import solve_arrays
+    from polychase_tpu_torch.kernels import pnp_lm
+    from polychase_tpu_torch.synthetic import pnp_scene
+
+    LS = pnp_lm.LaunchShape
+    rng = np.random.default_rng(seed)
+    kw = dict(opt_f=False, opt_pp=False,
+              opts=BundleOptions(max_iterations=50, loss_type=1,
+                                 function_tol=1e-5))
+    fails = []
+
+    def timed(args, ref, shape, reps=20):
+        got = pnp_lm.launch(*args, shape=shape, **kw)
+        _, f = compare(f"sweep {shape}", got.cpu().numpy(), ref,
+                       None, False)
+        fails.extend(f)
+        return got, event_ms(lambda: pnp_lm.launch(*args, shape=shape, **kw),
+                             reps)
+
+    for n in (4096, 8192, 16384, 32768):
+        args = to_device([pnp_scene(rng, n, n_masked=n // 8)], device)
+        ref = solve_arrays(*args, **kw).cpu().numpy()
+        print(f"  N={n} (ms per solve):")
+        c = 1
+        while c <= pnp_lm.MAX_CLUSTER:
+            per = -(-n // c)
+            shape = LS(c, pnp_lm.BLOCK_THREADS, per, per <= pnp_lm.STAGE_MAX)
+            if pnp_lm.cluster_fits(6, 1, shape) < c:
+                print(f"    cluster {c:2d}: not schedulable")
+            else:
+                got, ms = timed(args, ref, shape)
+                print(f"    cluster {c:2d} x {per:5d} points"
+                      f"{'' if shape.staged else ' (streamed)'}: "
+                      f"{ms:.4f}; {int(got[0, 11])} iterations")
+            c *= 2
+        chosen = k1_shape(args, kw)
+        _, ms = timed(args, ref, chosen._replace(staged=False))
+        print(f"    chosen {chosen.cluster} x {chosen.per_block} streamed "
+              f"from L2 instead of staged: {ms:.4f}")
+    print("  small N (ms per solve; one warp / one block of 256 threads):")
+    for n in (16, 32, 64, 128, 256, 512):
+        args = to_device([pnp_scene(rng, n)], device)
+        ref = solve_arrays(*args, **kw).cpu().numpy()
+        got, ms_w = timed(args, ref, LS(1, pnp_lm.WARP_THREADS, n, True),
+                          reps=100)
+        _, ms_b = timed(args, ref, LS(1, pnp_lm.BLOCK_THREADS, n, True),
+                        reps=100)
+        print(f"    N={n:4d}: {ms_w:.4f} / {ms_b:.4f}; "
+              f"{int(got[0, 11])} iterations")
+    torch.cuda.synchronize()
+    if fails:
+        raise AssertionError("K1 shape sweep:\n" + "\n".join(fails))
 
 
 # ---------------------------------------------------------------------------
@@ -570,12 +742,11 @@ def main_path_inputs_check(inputs):
         fails += f
     if fails or not inputs:
         raise AssertionError("main-path inputs:\n" + "\n".join(fails))
+    print(f"  K1 vs plain on {len(inputs)} recorded main-path solves: max "
+          f"|dpose| {max_err:.3g}")
     args, kw = inputs[-1]
-    k = event_ms(lambda: solve_arrays_lm(*args, **kw), 20)
-    p = event_ms(lambda: solve_arrays(*args, **kw), 3)
-    print(f"  K1 vs plain on {len(inputs)} recorded main-path solves "
-          f"(S=1, N={int(args[0].shape[1])}): max |dpose| {max_err:.3g}; "
-          f"per solve (last one): kernel {k:.4f} ms, plain {p:.4f} ms")
+    k1_report(f"the last one (S=1, N={int(args[0].shape[1])})", args, kw,
+              got, 3)
     return max_err
 
 
@@ -971,6 +1142,8 @@ def main() -> None:
 
     print("K1 phase (K1 vs plain torch, on the card):")
     max_err, times = kernel_phase(device)
+    print("K1 launch-shape sweep:")
+    k1_shape_sweep(device)
     frames = panning_clip(np.random.default_rng(0), PAN_FRAMES, WIDTH,
                           HEIGHT, PAN_STEP)
     print("LK kernel phase (K2, K3 vs plain torch, on the card):")
@@ -991,7 +1164,8 @@ def main() -> None:
 
     (k2_ms, k2_plain), (k3_ms, k3_plain) = lk_times
     (k2_bound_ms, k2_by), (k3_bound_ms, k3_by) = lk_bounds
-    k1_ms, k1_plain, (k1_bound_ms, k1_by) = times[6]
+    k1_ms, k1_plain, _, _, (k1_bound_ms, k1_by) = times[
+        "loss1_ftol1e-05_f0_pp0"]
     # No single PyTorch call computes any of the three (library_ms null).
     kernels = [{
         "name": "pnp_lm",

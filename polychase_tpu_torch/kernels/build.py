@@ -54,23 +54,24 @@ class Library:
         self.build_log = log
 
 
-def _artifact(source: str):
-    src = CSRC / source
+def _artifact(source: str, csrc: Path):
+    src = Path(csrc) / source
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 
-def load_all(sources) -> list:
-    """Build (if needed) and load ``csrc/<source>`` for each source; raises
-    on failure.  Missing libraries are compiled in parallel, one ``nvcc``
-    per source, all started together."""
+def load_all(sources, csrc: Path = CSRC) -> list:
+    """Build (if needed) and load ``<csrc>/<source>`` for each source (by
+    default the package's ``csrc/``); raises on failure.  Missing libraries
+    are compiled in parallel, one ``nvcc`` per source, all started
+    together."""
     with _lock:
         t0 = time.perf_counter()
         todo = []
         for source in sources:
-            if source in _loaded:
+            if str(Path(csrc) / source) in _loaded:
                 continue
-            src, out = _artifact(source)
+            src, out = _artifact(source, csrc)
             if out.exists():
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -103,16 +104,17 @@ def load_all(sources) -> list:
         if failed:
             raise RuntimeError("\n".join(failed))
         for source in sources:
-            if source in _loaded:
+            key = str(Path(csrc) / source)
+            if key in _loaded:
                 continue
-            _, out = _artifact(source)
+            _, out = _artifact(source, csrc)
             log_path = out.with_suffix(".log")
             log = log_path.read_text() if log_path.exists() else ""
-            _loaded[source] = Library(ctypes.CDLL(str(out)), out,
-                                      seconds.get(source, 0.0), log)
-        return [_loaded[source] for source in sources]
+            _loaded[key] = Library(ctypes.CDLL(str(out)), out,
+                                   seconds.get(source, 0.0), log)
+        return [_loaded[str(Path(csrc) / source)] for source in sources]
 
 
-def load(source: str) -> Library:
-    """Build (if needed) and load ``csrc/<source>``; raises on failure."""
-    return load_all([source])[0]
+def load(source: str, csrc: Path = CSRC) -> Library:
+    """Build (if needed) and load ``<csrc>/<source>``; raises on failure."""
+    return load_all([source], csrc)[0]

@@ -1,6 +1,6 @@
 """Synthetic clips, without JAX: an orbit clip with its flow database, a
-noisy trajectory and surface pins on it, and a panning clip of blurred noise
-for analyze.
+noisy trajectory and surface pins on it, a panning clip of blurred noise
+for analyze, and the PnP scenes of the JAX package's kernel tests.
 
 The scene is the tracking configuration of ``benchmarks/run_all.py``
 (``make_scene`` / ``build_synth_db``): a UV sphere at the origin, an OpenCV
@@ -206,3 +206,38 @@ def panning_clip(rng: np.random.Generator, n_frames: int, width: int,
     return [np.ascontiguousarray(big[sy * t:sy * t + height,
                                      sx * t:sx * t + width])
             for t in range(n_frames)]
+
+
+def pnp_scene(rng: np.random.Generator, n: int, *, opencv: bool = True,
+              behind: int = 0, n_masked: int = 0, f_err: float = 1.0,
+              pp_err=(0.0, 0.0), noise: float = 0.4, spread: float = 1.0):
+    """One PnP solve's inputs (the scenes of tests/test_pnp_pallas.py): n
+    random points, normal with ``spread`` about a point 6 units in front of
+    a 1920×1080, f = 1800 camera (``behind`` of them moved behind it),
+    their projections with ``noise``
+    px of noise, the last ``n_masked`` masked out, and a perturbed warm
+    start with the focal scaled by ``f_err`` and the principal point moved
+    by ``pp_err``.  Returns (X, x, weights, mask, params) as numpy arrays in
+    ``engine.pnp.solve_arrays``'s layout, without the batch axis."""
+    focal, width, height = 1800.0, 1920, 1080
+    sign = 1.0 if opencv else -1.0
+    X = (rng.normal(size=(n, 3)) * spread).astype(np.float32)
+    X[:, 2] += 6.0 * sign
+    X[:behind, 2] -= 14.0 * sign
+    q_gt = np.array([0.99, 0.05, -0.08, 0.03])
+    q_gt /= np.linalg.norm(q_gt)
+    t_gt = np.array([0.1, -0.2, 0.3])
+    Z = X.astype(np.float64) @ quat_to_mat_np(q_gt).T + t_gt
+    x = np.stack([focal * Z[:, 0] / Z[:, 2] + width / 2,
+                  focal * Z[:, 1] / Z[:, 2] + height / 2], axis=-1)
+    x = (x + rng.normal(scale=noise, size=(n, 2))).astype(np.float32)
+    mask = np.ones(n, bool)
+    mask[n - n_masked:] = False
+    q0 = q_gt + np.array([0.01, -0.02, 0.015, 0.01])
+    q0 /= np.linalg.norm(q0)
+    params = np.array(
+        [*q0, 0.15, -0.1, 0.2, focal * f_err, focal * f_err,
+         width / 2 + pp_err[0], height / 2 + pp_err[1], 1.0, width, height,
+         sign, 12.0], np.float32,
+    )
+    return X, x, mask.astype(np.float32), mask, params

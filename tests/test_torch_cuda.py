@@ -79,14 +79,85 @@ def test_kernel_matches_plain(card, loss_type, opt):
 
 
 def test_kernel_rejects_bad_shapes(card):
+    """Wrong shapes, devices, types and strided points raise: the kernel
+    reads the points where they lie."""
     X, x, w, m, p = _to([_scene(256, 0)], card)
     opts = BundleOptions()
-    with pytest.raises(ValueError):
-        pnp_lm.solve_arrays_lm(X, x[:, :-1], w, m, p, opt_f=False,
-                               opt_pp=False, opts=opts)
-    with pytest.raises(ValueError):
-        pnp_lm.solve_arrays_lm(X, x, w, m, p.cpu(), opt_f=False,
-                               opt_pp=False, opts=opts)
+    kw = dict(opt_f=False, opt_pp=False, opts=opts)
+    for bad in ((X, x[:, :-1], w, m, p), (X, x, w, m, p.cpu()),
+                (X, x, w.double(), m, p), (X, x, w, m.float(), p),
+                (torch.cat([X, X[..., :1]], -1)[..., :3], x, w, m, p),
+                (X[:, ::2].contiguous(), x[:, ::2], w[:, ::2], m[:, ::2],
+                 p)):
+        with pytest.raises(ValueError):
+            pnp_lm.solve_arrays_lm(*bad, **kw)
+
+
+def _random_masks(args, seed):
+    """Each solve of the batch its own random mask (and weights)."""
+    X, x, w, m, p = args
+    rng = np.random.default_rng(seed)
+    keep = rng.random(tuple(m.shape)) > rng.uniform(0.05, 0.5,
+                                                    (m.shape[0], 1))
+    m = torch.as_tensor(keep, device=m.device)
+    return [X, x, m.float(), m, p]
+
+
+# (S, N): each side of the step from one warp to one block and of every
+# doubling of the cluster, the largest cluster's staged capacity, the
+# streamed route, and batches whose solves each take a cluster.
+K1_SHAPE_CASES = [(1, 32), (1, 33), (1, 512), (1, 513), (1, 4096), (1, 4097),
+                  (1, 8192), (1, 131072), (1, 131073), (1, 200000), (8, 8192),
+                  (4, 16384), (64, 1000)]
+
+
+@pytest.mark.parametrize("S,N", K1_SHAPE_CASES)
+def test_kernel_launch_shapes_match_plain(card, S, N):
+    """K1 at every kind of launch shape against the plain version, with
+    the tolerances of test_kernel_matches_plain."""
+    args = _random_masks(_to([_scene(N, s) for s in range(S)], card), N)
+    kw = dict(opt_f=False, opt_pp=False,
+              opts=BundleOptions(max_iterations=50, loss_type=1,
+                                 function_tol=1e-5))
+    shape = pnp_lm.fitted_shape(S, N, 6, 1)
+    assert shape.cluster * shape.per_block >= N
+    if N > pnp_lm.STAGE_MAX * pnp_lm.MAX_CLUSTER:
+        assert not shape.staged
+    if N > pnp_lm.WARP_MAX and S <= 8:
+        assert shape.cluster > 1 or N <= pnp_lm.BLOCK_POINTS
+    before = pnp_lm.launches
+    got = pnp_lm.solve_arrays_lm(*args, **kw).cpu().numpy()
+    assert pnp_lm.launches == before + 1
+    ref = solve_arrays(*args, **kw).cpu().numpy()
+    np.testing.assert_allclose(got[:, :7], ref[:, :7], atol=5e-4)
+    np.testing.assert_allclose(got[:, 18], ref[:, 18], atol=1e-3)
+    np.testing.assert_allclose(got[:, 13], ref[:, 13], rtol=1e-3)
+
+
+@pytest.mark.parametrize("n", [3, 4, 5, 6, 7, 8])
+def test_kernel_pin_sizes(card, n):
+    """Pin-drag sizes with a free focal (one warp): pose and focal against
+    the plain version, on points spread wide enough that the focal is
+    determined (chip_smoke.py's pin cases say why); with 3 points the focal
+    stays frozen (the > 3 gate) and the pose fits them exactly, so the cost
+    is not compared."""
+    from polychase_tpu_torch.synthetic import pnp_scene
+
+    scene = pnp_scene(np.random.default_rng(100 + n), n, f_err=0.95,
+                      noise=1.0, spread=2.0)
+    args = _to([scene], card)
+    p = args[4]
+    kw = dict(opt_f=True, opt_pp=False, opts=BundleOptions(loss_type=0))
+    assert pnp_lm.fitted_shape(1, n, 9, 0).threads == pnp_lm.WARP_THREADS
+    got = pnp_lm.solve_arrays_lm(*args, **kw).cpu().numpy()
+    ref = solve_arrays(*args, **kw).cpu().numpy()
+    np.testing.assert_allclose(got[:, :7], ref[:, :7], atol=1e-3)
+    np.testing.assert_allclose(got[:, 7:11], ref[:, 7:11], rtol=2e-3,
+                               atol=1.0)
+    if n == 3:
+        np.testing.assert_array_equal(got[:, 7:11], p[:, 7:11].cpu().numpy())
+    else:
+        np.testing.assert_allclose(got[:, 13], ref[:, 13], rtol=1e-3)
 
 
 # ---------------------------------------------------------------------------

@@ -135,6 +135,26 @@ def test_intrinsics_gate_3_points():
         np.testing.assert_allclose(got[:7], ref[:7], atol=5e-4)
 
 
+@pytest.mark.parametrize("n,opt_pp", [(4, False), (6, False), (8, False),
+                                      (8, True)])
+def test_pin_sizes(n, opt_pp):
+    """Pin-drag sizes (the solves K1 runs in one warp): 4 to 8 points,
+    Trivial loss, free focal, against the JAX XLA solve.  A free principal
+    point needs more than 4 points: with 4 it has 9 unknowns for 8
+    residuals, and the two solvers stop at different points of that
+    valley."""
+    X, x, w, mask, params = _scene_cv(n=n, f_err=0.95)
+    opts = JaxBundleOptions(loss_type=0)
+    got = _port(X, x, w, mask, params, opts, opt_f=True, opt_pp=opt_pp)
+    args = [jnp.asarray(a) for a in (X, x, w, mask, params)]
+    ref = np.asarray(jax.device_get(jax_solve_arrays(
+        *args, opt_f=True, opt_pp=opt_pp, opts=opts)))
+    np.testing.assert_allclose(got[:7], ref[:7], atol=1e-3)
+    np.testing.assert_allclose(got[7:11], ref[7:11], rtol=2e-3, atol=1.0)
+    np.testing.assert_allclose(got[13], ref[13], rtol=1e-3)
+    np.testing.assert_allclose(got[18], ref[18], atol=1e-3)
+
+
 def test_batched_equals_single_solves():
     """Solves of a batch are independent: each row agrees with its own
     single solve and with the JAX solve, to the solver tolerance (a batched
