@@ -61,11 +61,27 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    drags and one drag of 16,384 surface points; every drag above
    ``pinmode.HOST_PIN_MAX`` points must launch K1 once, the big drag must
    agree with the host route within 1e-4, and K1 is held against its plain
-   version on the drags' solver inputs; then the table of host against
-   device route times from which the pin crossover was set.
-9. Prints the card, the kernels' JSON line (time, plain time, bound and
-   what sets it, launches on the main path, largest difference) and, last,
-   ``{"ok": true, ...}``.
+   version on the drags' solver inputs.  (The host and device route times
+   per pin count are ``python3 -m polychase_tpu_torch.crossover``'s.)
+9. Surface phase: the data of the phases above through
+   ``polychase_tpu_torch.polychase_core`` with no device argument, so on
+   the card by default.  An ``OpticalFlowThread`` on the panning clip
+   (analyze's gates, the direct run's keypoints and pairs, each frame
+   requested once, K2 and K3 once per level of every solve); a forward
+   ``TrackerThread`` over the tracking clip (the ground truth, the direct
+   run's poses within 1e-6, one K1 launch a frame); a ``RefinerThread`` on
+   config 4 (refine's gates); 20 8-pin drags and one 16,384-point drag
+   through ``find_transformation`` (the engine's result within 1e-6, K1 once
+   per drag above ``pinmode.HOST_PIN_MAX``); 64 ``ray_cast`` picks
+   (primitive ids equal to the device ray cast's); a ``CppException`` from a
+   track on an empty DB and a clean ``request_stop``.  Then tracking and
+   analyze frames/s and the 8-pin drag's ms, direct and through the
+   surface (the threads, ``find_transformation``), in the order direct,
+   surface, surface, direct.
+10. Prints the card, the kernels' JSON line (time, plain time, bound and
+    what sets it, launches on the main path (the analyze, tracking and pin
+    phases) and apart in the surface phase, largest difference) and, last,
+    ``{"ok": true, ...}``.
 
 Any failed check raises, so the script exits non-zero without the last line.
 It refuses to run without a CUDA device.
@@ -606,49 +622,34 @@ def lk_kernel_phase(device, frames):
     return patch_err, pos_err, times[0], bounds[0]
 
 
-def analyze_phase(device, frames):
-    """Analyze the panning clip twice (warm-up, timed), each into a fresh
-    DB, and check the timed run against the ground truth; a third run under
-    ``torch.profiler`` gives the device busy share.  Returns the K2 and K3
-    launch counts of the timed run and its frames/s."""
+def read_analyze_db(path, n):
+    """The keypoints of every frame and the flows of every skip pair that a
+    DB of an n-frame analyze holds."""
     from polychase_tpu_torch.io.database import Database
-    from polychase_tpu_torch.engine import lk
-    from polychase_tpu_torch.engine.opticalflow import (
-        IMAGE_SKIPS, VideoInfo, generate_optical_flow_database,
-    )
-    from polychase_tpu_torch.kernels import lk_iter, lk_prep
+    from polychase_tpu_torch.engine.opticalflow import IMAGE_SKIPS
 
-    n = len(frames)
-    height, width = frames[0].shape
-    info = VideoInfo(width, height, 0, n)
+    db = Database(path)
+    try:
+        kps = [db.read_keypoints(f) for f in range(n)]
+        flows = {(f, f + s): db.read_image_pair_flow(f, f + s)
+                 for f in range(n) for s in IMAGE_SKIPS
+                 if 0 <= f + s < n and db.image_pair_flow_exists(f, f + s)}
+    finally:
+        db.close()
+    return kps, flows
 
-    def run(path):
-        t0 = time.perf_counter()
-        generate_optical_flow_database(info, lambda f: frames[f], None, path,
-                                       device=device)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
 
-    with tempfile.TemporaryDirectory() as td:
-        warm = run(os.path.join(td, "warm.db"))
-        lk_prep.launches = lk_iter.launches = 0
-        path = os.path.join(td, "flow.db")
-        seconds = run(path)
-        launches = (lk_prep.launches, lk_iter.launches)
-        pwall, _, busy_ms, busy = profile_split(
-            lambda: run(os.path.join(td, "profiled.db")), device, ())
-        db = Database(path)
-        try:
-            kps = [db.read_keypoints(f) for f in range(n)]
-            flows = {(f, f + s): db.read_image_pair_flow(f, f + s)
-                     for f in range(n) for s in IMAGE_SKIPS
-                     if 0 <= f + s < n and db.image_pair_flow_exists(f, f + s)}
-        finally:
-            db.close()
+def analyze_gates(kps, flows, n):
+    """Analyze's gates on a DB's rows: corners on every frame, every skip
+    pair, the flows of skips ±1 and ±2 against the ground truth -s·PAN_STEP
+    and the share kept at ±1.  Prints each skip's errors; returns the
+    failures."""
+    from polychase_tpu_torch.engine.opticalflow import IMAGE_SKIPS
+
     fails = []
     counts = [k.shape[0] for k in kps]
-    print(f"  clip: {width}x{height}, {n} frames, pan {PAN_STEP} px/frame; "
-          f"corners per frame {min(counts)}..{max(counts)}")
+    print(f"  {n} frames, pan {PAN_STEP} px/frame; corners per frame "
+          f"{min(counts)}..{max(counts)}")
     if min(counts) == 0:
         fails.append("a frame has no corners")
     want = {(f, f + s) for f in range(n) for s in IMAGE_SKIPS
@@ -675,9 +676,53 @@ def analyze_phase(device, frames):
             fails.append(f"skip {s}: median flow error {med:.3g} px")
         if abs(s) == 1 and share < KEPT_MIN:
             fails.append(f"skip {s}: only {share:.4f} of the flows kept")
+    return fails
+
+
+def analyze_solves(n, height, width):
+    """(levels, solves) of an n-frame analyze: K2 and K3 launch once per
+    level of every solve."""
+    from polychase_tpu_torch.engine import lk
+    from polychase_tpu_torch.engine.opticalflow import IMAGE_SKIPS
+
     levels = lk.num_pyramid_levels(height, width, lk.LKOptions())
-    solves = sum(1 for f in range(n) if any((f, f + s) in want
-                                            for s in IMAGE_SKIPS))
+    solves = sum(1 for f in range(n)
+                 if any(0 <= f + s < n for s in IMAGE_SKIPS))
+    return levels, solves
+
+
+def analyze_phase(device, frames, workdir):
+    """Analyze the panning clip twice (warm-up, timed), each into a fresh
+    DB in ``workdir``, and check the timed run against the ground truth; a
+    third run under ``torch.profiler`` gives the device busy share.  Returns
+    the K2 and K3 launch counts of the timed run, its frames/s and its DB's
+    path."""
+    from polychase_tpu_torch.engine.opticalflow import (
+        VideoInfo, generate_optical_flow_database,
+    )
+    from polychase_tpu_torch.kernels import lk_iter, lk_prep
+
+    n = len(frames)
+    height, width = frames[0].shape
+    info = VideoInfo(width, height, 0, n)
+
+    def run(path):
+        t0 = time.perf_counter()
+        generate_optical_flow_database(info, lambda f: frames[f], None, path,
+                                       device=device)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    warm = run(os.path.join(workdir, "analyze_warm.db"))
+    lk_prep.launches = lk_iter.launches = 0
+    path = os.path.join(workdir, "analyze.db")
+    seconds = run(path)
+    launches = (lk_prep.launches, lk_iter.launches)
+    pwall, _, busy_ms, busy = profile_split(
+        lambda: run(os.path.join(workdir, "analyze_profiled.db")), device, ())
+    print(f"  clip: {width}x{height}")
+    fails = analyze_gates(*read_analyze_db(path, n), n)
+    levels, solves = analyze_solves(n, height, width)
     if launches != (levels * solves, levels * solves):
         fails.append(f"K2/K3 launched {launches} times for {solves} solves "
                      f"of {levels} levels")
@@ -691,7 +736,7 @@ def analyze_phase(device, frames):
     print(f"  analyze: {n} frames in {seconds:.3f} s = {fps:.2f} frames/s "
           f"(warm-up run {warm:.3f} s); profiled run {pwall:.4f} s, device "
           f"time {busy_ms:.3f} ms, busy share {busy:.4f}")
-    return launches, fps
+    return launches, fps, path
 
 
 # ---------------------------------------------------------------------------
@@ -750,8 +795,13 @@ def main_path_inputs_check(inputs):
     return max_err
 
 
-def main_path_phase(device, *, n_frames=N_FRAMES, keypoints=KEYPOINTS,
-                    sphere=SPHERE, seed=1):
+def main_path_phase(device, workdir, *, n_frames=N_FRAMES,
+                    keypoints=KEYPOINTS, sphere=SPHERE, seed=1):
+    """Tracking on the card, its flow DB written into ``workdir``.  Returns
+    K1's launches, forward frames/s, K1's largest difference from its plain
+    version on recorded inputs, and what the surface phase reuses: the DB,
+    the mesh's arrays, the ground truth, the forward run's results and the
+    run itself."""
     from polychase_tpu_torch.engine.camera import OPENCV, Intrinsics
     from polychase_tpu_torch.engine.geometry import (
         Mesh, SceneTransformations,
@@ -823,36 +873,35 @@ def main_path_phase(device, *, n_frames=N_FRAMES, keypoints=KEYPOINTS,
         if not ok:
             raise AssertionError(f"{label}: ground-truth check failed")
 
-    with tempfile.TemporaryDirectory() as td:
-        db_path = os.path.join(td, "flow.db")
-        t0 = time.perf_counter()
-        build_flow_db(db_path, mesh, FOCAL, WIDTH, HEIGHT, poses, rng,
-                      keypoints, NOISE_PX)
-        print(f"  flow DB written in {time.perf_counter() - t0:.2f} s")
-        # Warm-up (first launches, allocator), recording the solver's
-        # inputs: K1 is then held against its plain version on the very
-        # tensors the main path hands it.
-        inputs = []
-        real = tracker.solve_arrays_lm
+    db_path = os.path.join(workdir, "track.db")
+    t0 = time.perf_counter()
+    build_flow_db(db_path, mesh, FOCAL, WIDTH, HEIGHT, poses, rng,
+                  keypoints, NOISE_PX)
+    print(f"  flow DB written in {time.perf_counter() - t0:.2f} s")
+    # Warm-up (first launches, allocator), recording the solver's
+    # inputs: K1 is then held against its plain version on the very
+    # tensors the main path hands it.
+    inputs = []
+    real = tracker.solve_arrays_lm
 
-        def record(*args, **kw):
-            inputs.append((args, kw))
-            return real(*args, **kw)
+    def record(*args, **kw):
+        inputs.append((args, kw))
+        return real(*args, **kw)
 
-        tracker.solve_arrays_lm = record
-        try:
-            run(db_path, 0, 8)
-        finally:
-            tracker.solve_arrays_lm = real
-        path_err = main_path_inputs_check(inputs)
+    tracker.solve_arrays_lm = record
+    try:
+        run(db_path, 0, 8)
+    finally:
+        tracker.solve_arrays_lm = real
+    path_err = main_path_inputs_check(inputs)
 
-        pnp_lm.launches = 0
-        fwd, fwd_s = run(db_path, 0, n_frames - 1)
-        half = n_frames // 2
-        bwd, _ = run(db_path, half, 0)
-        seg = min(24, n_frames - 1)
-        opt, _ = run(db_path, 0, seg, opt=True)
-        launches = pnp_lm.launches
+    pnp_lm.launches = 0
+    fwd, fwd_s = run(db_path, 0, n_frames - 1)
+    half = n_frames // 2
+    bwd, _ = run(db_path, half, 0)
+    seg = min(24, n_frames - 1)
+    opt, _ = run(db_path, 0, seg, opt=True)
+    launches = pnp_lm.launches
 
     solved = (n_frames - 1) + half + seg
     check("forward", fwd, n_frames - 1)
@@ -866,7 +915,9 @@ def main_path_phase(device, *, n_frames=N_FRAMES, keypoints=KEYPOINTS,
           f"(= {solved} frames solved)")
     print(f"  forward tracking: {n_frames - 1} frames in {fwd_s:.3f} s = "
           f"{fps:.2f} frames/s")
-    return launches, fps, path_err
+    track = dict(db=db_path, verts=verts, tris=tris, poses=poses, fwd=fwd,
+                 run=run)
+    return launches, fps, path_err, track
 
 
 # ---------------------------------------------------------------------------
@@ -950,10 +1001,43 @@ def band_solve_check(device, db_path, traj, mesh):
     return band, JtJ.shape[0], event_ms(banded, 10), event_ms(dense, 10), rel
 
 
-def refine_phase(device, *, n_frames=REFINE_FRAMES,
+def refine_gates(state, poses, ends, before, stats):
+    """Refine's gates on a refined trajectory: the cost falls, the anchors
+    (first and last frame, ``ends``: their (q, t, fy) before) are untouched
+    to the bit, the median translation error falls from ``before``, every
+    rotation error is within ``ROT_ERR_MAX``.  ``state(i)`` gives frame i's
+    (q, t, fy) on the host.  Prints the errors; returns the failures."""
+    n = len(poses)
+    states = [state(i) for i in range(n)]
+    after = np.array([np.linalg.norm(t - poses[i][1])
+                      for i, (_, t, _) in enumerate(states)])
+    rot = max(quat_err(q, poses[i][0]) for i, (q, _, _) in enumerate(states))
+    focal = np.array([f for _, _, f in states])
+    print(f"  cost {float(stats.initial_cost):.4f} -> {float(stats.cost):.4f}"
+          f"; median t err {np.median(before):.3g} -> {np.median(after):.3g}"
+          f", max {before.max():.3g} -> {after.max():.3g}; max rot err "
+          f"{rot:.3g} rad; max focal err {np.abs(focal / FOCAL - 1).max():.3g}"
+          f" (rel)")
+    fails = []
+    if not float(stats.cost) < float(stats.initial_cost):
+        fails.append("the cost did not fall")
+    for (q0, t0, f0), i in zip(ends, (0, n - 1)):
+        q, t, f = states[i]
+        if not (np.array_equal(q, q0) and np.array_equal(t, t0) and f == f0):
+            fails.append(f"anchor frame {i} moved")
+    if not np.median(after) < np.median(before):
+        fails.append("the median translation error did not fall")
+    if rot > ROT_ERR_MAX:
+        fails.append(f"rotation error {rot:.3g} > {ROT_ERR_MAX}")
+    return fails
+
+
+def refine_phase(device, workdir, *, n_frames=REFINE_FRAMES,
                  keypoints=REFINE_KEYPOINTS, sphere=REFINE_SPHERE, seed=2):
-    """Config 4 on the card.  Returns the timed run's wall seconds and
-    iteration count."""
+    """Config 4 on the card, its flow DB written into ``workdir``.  Returns
+    the timed run's wall seconds and iteration count, and what the surface
+    phase reuses: the DB, the mesh's arrays, the ground truth and a maker
+    of noisy starting trajectories."""
     from polychase_tpu_torch.engine.camera import OPENCV, Intrinsics
     from polychase_tpu_torch.engine.geometry import Mesh
     from polychase_tpu_torch.engine.levmarq import CAUCHY, BundleOptions
@@ -975,64 +1059,43 @@ def refine_phase(device, *, n_frames=REFINE_FRAMES,
           f"{NOISE_PX} px noise; translations noised by N(0, "
           f"{REFINE_T_SIGMA})")
 
-    def t_errs(traj):
-        return np.array([np.linalg.norm(traj.get(i).pose.t.numpy()
-                                        - poses[i][1])
-                         for i in range(n_frames)])
+    def noisy():
+        return noisy_trajectory(poses, intr, rng, REFINE_T_SIGMA)
 
-    with tempfile.TemporaryDirectory() as td:
-        db_path = os.path.join(td, "flow.db")
-        build_flow_db(db_path, mesh, FOCAL, WIDTH, HEIGHT, poses, rng,
-                      keypoints, NOISE_PX)
+    db_path = os.path.join(workdir, "refine.db")
+    build_flow_db(db_path, mesh, FOCAL, WIDTH, HEIGHT, poses, rng,
+                  keypoints, NOISE_PX)
 
-        def run(traj, callback=None):
-            t0 = time.perf_counter()
-            refine_trajectory(db_path, traj, np.eye(4, dtype=np.float32),
-                              mesh, optimize_focal_length=True,
-                              callback=callback, bundle_opts=opts,
-                              device=device)
-            torch.cuda.synchronize(device)
-            return time.perf_counter() - t0
+    def run(traj, callback=None):
+        t0 = time.perf_counter()
+        refine_trajectory(db_path, traj, np.eye(4, dtype=np.float32),
+                          mesh, optimize_focal_length=True,
+                          callback=callback, bundle_opts=opts,
+                          device=device)
+        torch.cuda.synchronize(device)
+        return time.perf_counter() - t0
 
-        warm = run(noisy_trajectory(poses, intr, rng, REFINE_T_SIGMA))
-        traj = noisy_trajectory(poses, intr, rng, REFINE_T_SIGMA)
-        band = band_solve_check(device, db_path, traj, mesh)
-        ends = [(traj.get(i).pose.q.numpy().copy(),
-                 traj.get(i).pose.t.numpy().copy(),
-                 float(traj.get(i).intrinsics.fy)) for i in (0, n_frames - 1)]
-        before = t_errs(traj)
-        updates = []
-        wall = run(traj, lambda u: updates.append(u) or True)
-        split = profile_split(
-            lambda: run(noisy_trajectory(poses, intr, rng, REFINE_T_SIGMA)),
-            device)
+    warm = run(noisy())
+    traj = noisy()
+    band = band_solve_check(device, db_path, traj, mesh)
 
-    fails = []
+    def state(i):
+        s = traj.get(i)
+        return (s.pose.q.numpy().copy(), s.pose.t.numpy().copy(),
+                float(s.intrinsics.fy))
+
+    ends = [state(i) for i in (0, n_frames - 1)]
+    before = np.array([np.linalg.norm(state(i)[1] - poses[i][1])
+                       for i in range(n_frames)])
+    updates = []
+    wall = run(traj, lambda u: updates.append(u) or True)
+    split = profile_split(lambda: run(noisy()), device)
+
     stats = updates[-1].stats
     iters = int(stats.iterations)
-    after = t_errs(traj)
-    rot = max(quat_err(traj.get(i).pose.q.numpy(), poses[i][0])
-              for i in range(n_frames))
-    focal = np.array([float(traj.get(i).intrinsics.fy)
-                      for i in range(n_frames)])
     print(f"  refine: {iters} iterations in {wall:.4f} s (warm-up run "
-          f"{warm:.4f} s); cost {float(stats.initial_cost):.4f} -> "
-          f"{float(stats.cost):.4f}; median t err {np.median(before):.3g} -> "
-          f"{np.median(after):.3g}, max {before.max():.3g} -> "
-          f"{after.max():.3g}; max rot err {rot:.3g} rad; max focal err "
-          f"{np.abs(focal / FOCAL - 1).max():.3g} (rel)")
-    if not float(stats.cost) < float(stats.initial_cost):
-        fails.append("the cost did not fall")
-    for (q0, t0, f0), i in zip(ends, (0, n_frames - 1)):
-        s = traj.get(i)
-        if not (np.array_equal(s.pose.q.numpy(), q0)
-                and np.array_equal(s.pose.t.numpy(), t0)
-                and float(s.intrinsics.fy) == f0):
-            fails.append(f"anchor frame {i} moved")
-    if not np.median(after) < np.median(before):
-        fails.append("the median translation error did not fall")
-    if rot > ROT_ERR_MAX:
-        fails.append(f"rotation error {rot:.3g} > {ROT_ERR_MAX}")
+          f"{warm:.4f} s)")
+    fails = refine_gates(state, poses, ends, before, stats)
     (nb, bs), n0, band_ms, dense_ms, rel = band
     print(f"  one normal system (P = {n0}, nb = {nb}, bs = {bs}): banded "
           f"{band_ms:.4f} ms, dense {dense_ms:.4f} ms, steps differ by "
@@ -1046,7 +1109,9 @@ def refine_phase(device, *, n_frames=REFINE_FRAMES,
           + f", other {busy_ms - sum(labels.values()):.3f}")
     if fails:
         raise AssertionError("refine:\n" + "\n".join(fails))
-    return wall, iters
+    refine = dict(db=db_path, verts=verts, tris=tris, poses=poses,
+                  noisy=noisy)
+    return wall, iters, refine
 
 
 # ---------------------------------------------------------------------------
@@ -1057,8 +1122,8 @@ def refine_phase(device, *, n_frames=REFINE_FRAMES,
 def pin_phase(device):
     """Config 2's drags.  Returns the 8-pin ms per drag, K1's launches on
     the main path (the 20 drags and the 16,384-point one), and the largest
-    pose difference of K1 against its plain version on that drag's
-    inputs."""
+    pose difference of K1 against its plain version on the solver inputs
+    of the drags that took the device route."""
     from polychase_tpu_torch import crossover
     from polychase_tpu_torch.engine import pinmode
     from polychase_tpu_torch.kernels import pnp_lm
@@ -1107,12 +1172,320 @@ def pin_phase(device):
                              f"device-route drags")
     if diff > PIN_ROUTE_ATOL:
         raise AssertionError(f"device and host routes differ by {diff:.3g}")
-    path_err = main_path_inputs_check(inputs)
-    print(f"  route table (ms per drag; HOST_PIN_MAX = "
-          f"{pinmode.HOST_PIN_MAX}):")
-    for n, h_ms, d_ms in crossover.pin_route_table(device):
-        print(f"    {n:6d} points: host {h_ms:.4f}, device {d_ms:.4f}")
-    return ms, launches, path_err
+    return ms, launches, main_path_inputs_check(inputs)
+
+
+# ---------------------------------------------------------------------------
+# Surface phase
+# ---------------------------------------------------------------------------
+
+# A worker thread with no done message after this long fails the run.
+THREAD_DEADLINE_S = 300.0
+SURFACE_PICKS = 64
+# The facade adds no arithmetic to the engine calls it wraps.
+SURFACE_ATOL = 1e-6
+
+
+def drain(thread, frames=None, stop_after=None):
+    """Poll a worker thread of ``polychase_core`` until its done message,
+    serving its frame requests from ``frames`` and asking it to stop once
+    more than ``stop_after`` frames were requested.  Returns (its other
+    messages, the exceptions it sent, the frames it requested)."""
+    import polychase_tpu_torch.polychase_core as pc
+
+    msgs, errors, requested = [], [], []
+    deadline = time.monotonic() + THREAD_DEADLINE_S
+    while True:
+        msg = thread.try_pop()
+        if msg is None:
+            if time.monotonic() > deadline:
+                thread.request_stop()
+                raise AssertionError(
+                    f"no done message within {THREAD_DEADLINE_S} s")
+            time.sleep(0.001)
+        elif isinstance(msg, bool):
+            break
+        elif isinstance(msg, Exception):
+            errors.append(msg)
+        elif isinstance(msg, pc.OpticalFlowRequest):
+            requested.append(msg.frame_id)
+            if stop_after is not None and len(requested) > stop_after:
+                thread.request_stop()
+            thread.provide_frame(msg.frame_id, frames[msg.frame_id])
+        else:
+            msgs.append(msg)
+    thread.join()
+    return msgs, errors, requested
+
+
+def view_of(pose):
+    """The view matrix of a (q, t) camera pose."""
+    from polychase_tpu_torch.engine.pose import quat_to_mat_np
+
+    view = np.eye(4, dtype=np.float32)
+    view[:3, :3] = quat_to_mat_np(pose[0])
+    view[:3, 3] = pose[1]
+    return view
+
+
+def surface_phase(device, frames, analyze_db, track, refine, workdir, smi):
+    """The earlier phases' data through ``polychase_core`` with no device
+    argument: an ``OpticalFlowThread`` on the panning clip (the analyze
+    gates, the rows of the direct run's DB, K2 and K3 once per level of
+    every solve), a forward ``TrackerThread`` over the tracking clip (the
+    ground truth, the direct run's poses, one K1 launch a frame), a
+    ``RefinerThread`` on config 4 (refine's gates), 20 8-pin drags and one
+    16,384-point drag through ``find_transformation`` (the engine's result,
+    K1 once per drag above ``HOST_PIN_MAX``), 64 ``ray_cast`` picks (the
+    device ray cast's primitive ids), a ``CppException`` and a clean cancel;
+    then tracking and analyze frames/s and the 8-pin drag's ms, direct and
+    through the surface, in turns.  Returns the K1, K2 and K3 launches of
+    its gated runs."""
+    import polychase_tpu_torch.polychase_core as pc
+    from polychase_tpu_torch import crossover
+    from polychase_tpu_torch.engine import pinmode, raycast
+    from polychase_tpu_torch.engine.geometry import Mesh
+    from polychase_tpu_torch.engine.opticalflow import (
+        VideoInfo, generate_optical_flow_database,
+    )
+    from polychase_tpu_torch.kernels import lk_iter, lk_prep, pnp_lm
+
+    fails = []
+    n = len(frames)
+    height, width = frames[0].shape
+    intrinsics = pc.CameraIntrinsics(FOCAL, FOCAL, WIDTH / 2, HEIGHT / 2, 1.0,
+                                     WIDTH, HEIGHT, pc.CameraConvention.OpenCV)
+
+    def analyze_thread(path):
+        t0 = time.perf_counter()
+        msgs, errors, requested = drain(
+            pc.OpticalFlowThread(pc.VideoInfo(width, height, 0, n), path),
+            frames)
+        seconds = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        return seconds, msgs, requested
+
+    lk_prep.launches = lk_iter.launches = 0
+    path = os.path.join(workdir, "surface_analyze.db")
+    seconds, msgs, requested = analyze_thread(path)
+    lk_launches = (lk_prep.launches, lk_iter.launches)
+    levels, solves = analyze_solves(n, height, width)
+    print(f"  OpticalFlowThread: {n} frames in {seconds:.3f} s, "
+          f"{len(msgs)} progress messages, last {msgs[-1]}; K2 / K3 launches "
+          f"{lk_launches[0]} / {lk_launches[1]} (= {solves} solves x "
+          f"{levels} levels)")
+    kps, flows = read_analyze_db(path, n)
+    fails += analyze_gates(kps, flows, n)
+    ref_kps, ref_flows = read_analyze_db(analyze_db, n)
+    same_kps = all(np.array_equal(a, b) for a, b in zip(kps, ref_kps))
+    same_kept = [k for k in flows if k in ref_flows and np.array_equal(
+        flows[k].src_kps_indices, ref_flows[k].src_kps_indices)]
+    dflow = max((float(np.abs(flows[k].tgt_kps - ref_flows[k].tgt_kps).max(
+        initial=0.0)) for k in same_kept), default=0.0)
+    print(f"  against the direct run's DB: keypoints "
+          f"{'equal' if same_kps else 'DIFFER'}, {len(same_kept)} of "
+          f"{len(ref_flows)} pairs keep the same flows, largest flow "
+          f"difference on them {dflow:.3g} px")
+    if not same_kps or set(flows) != set(ref_flows):
+        fails.append("the thread's keypoints or pairs differ from the "
+                     "direct analyze's")
+    if requested != list(range(n)):
+        fails.append(f"frames requested {requested}, want each once")
+    if lk_launches != (levels * solves, levels * solves):
+        fails.append(f"K2/K3 launched {lk_launches} times through the "
+                     f"thread for {solves} solves of {levels} levels")
+
+    poses = track["poses"]
+    last = len(poses) - 1
+    scene = pc.SceneTransformations(np.eye(4), view_of(poses[0]), intrinsics)
+    accel = pc.AcceleratedMesh(track["verts"], track["tris"])
+
+    def track_thread():
+        t0 = time.perf_counter()
+        results, errors, _ = drain(pc.TrackerThread(
+            track["db"], 0, last, scene, accel, False, False,
+            pc.BundleOptions()))
+        seconds = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        return results, seconds
+
+    pnp_lm.launches = 0
+    results, seconds = track_thread()
+    k1_track = pnp_lm.launches
+    direct = {r.frame: (r.pose.q.numpy(), r.pose.t.numpy())
+              for r in track["fwd"]}
+    rot = max(quat_err(r.pose.q, poses[r.frame][0]) for r in results)
+    terr = max(float(np.linalg.norm(r.pose.t - poses[r.frame][1]))
+               for r in results)
+    dpose = max(max(float(np.abs(r.pose.q - direct[r.frame][0]).max()),
+                    float(np.abs(r.pose.t - direct[r.frame][1]).max()))
+                for r in results)
+    print(f"  TrackerThread: {len(results)} frames in {seconds:.3f} s, max "
+          f"rot err {rot:.3g} rad, max t err {terr:.3g}; largest difference "
+          f"from the direct run's poses {dpose:.3g}; K1 launches {k1_track}")
+    if [r.frame for r in results] != list(range(1, last + 1)):
+        fails.append("the TrackerThread's frames are not 1..last")
+    if rot > ROT_ERR_MAX or terr > T_ERR_MAX:
+        fails.append("a TrackerThread pose is off the ground truth")
+    if dpose > SURFACE_ATOL:
+        fails.append(f"TrackerThread poses differ from the direct run's by "
+                     f"{dpose:.3g}")
+    if k1_track != last:
+        fails.append(f"K1 launched {k1_track} times for {last} frames")
+
+    rposes = refine["poses"]
+    nf = len(rposes)
+    start = refine["noisy"]()
+    traj = pc.CameraTrajectory(0, nf)
+    for i in range(nf):
+        s = start.get(i)
+        traj.set(i, pc.CameraState(intrinsics, pc.Pose(s.pose.q.numpy(),
+                                                       s.pose.t.numpy())))
+
+    def state(i):
+        s = traj.get(i)
+        return s.pose.q.copy(), s.pose.t.copy(), float(s.intrinsics.fy)
+
+    ends = [state(i) for i in (0, nf - 1)]
+    before = np.array([np.linalg.norm(state(i)[1] - rposes[i][1])
+                       for i in range(nf)])
+    opts = pc.BundleOptions()
+    opts.loss_type = pc.LossType.Cauchy
+    opts.max_iterations = REFINE_ITERS
+    t0 = time.perf_counter()
+    updates, errors, _ = drain(pc.RefinerThread(
+        refine["db"], traj, np.eye(4, dtype=np.float32),
+        pc.AcceleratedMesh(refine["verts"], refine["tris"]), True, False,
+        opts))
+    if errors:
+        raise errors[0]
+    print(f"  RefinerThread: config 4, {updates[-1].stats.iterations} "
+          f"iterations in {time.perf_counter() - t0:.4f} s, "
+          f"{len(updates)} updates")
+    fails += refine_gates(state, rposes, ends, before, updates[-1].stats)
+
+    pins, escene = crossover.pin_scene(device, 8)
+    big, _ = crossover.pin_scene(device, PIN_BIG, seed=1)
+    pscene = pc.SceneTransformations(np.eye(4), escene.view_matrix.numpy(),
+                                     intrinsics)
+
+    def drag(points, k):
+        return pc.find_transformation(
+            points, pscene, pscene,
+            pc.PinUpdate(2, np.array([955.0 + k, 542.0], np.float32)),
+            pc.TransformationType.Camera)
+
+    pnp_lm.launches = 0
+    t0 = time.perf_counter()
+    outs = [drag(pins, k % 5) for k in range(PIN_REPS)]
+    pin_ms = (time.perf_counter() - t0) * 1e3 / PIN_REPS
+    out_big = drag(big, 0)
+    k1_pin = pnp_lm.launches
+    want = (PIN_REPS * (len(pins) > pinmode.HOST_PIN_MAX)
+            + (len(big) > pinmode.HOST_PIN_MAX))
+    dpin = 0.0
+    for (points, k), out in ([((pins, k % 5), o) for k, o in enumerate(outs)]
+                             + [((big, 0), out_big)]):
+        ref = crossover.pin_drag(points, escene, k, device)
+        for got, exp in ((out.view_matrix, ref.view_matrix),
+                         (out.model_matrix, ref.model_matrix)):
+            dpin = max(dpin, float(np.abs(got - exp.numpy()).max()))
+    print(f"  find_transformation: 8-pin drag {pin_ms:.4f} ms ({PIN_REPS} "
+          f"drags, {'device' if len(pins) > pinmode.HOST_PIN_MAX else 'host'}"
+          f" route), one {PIN_BIG}-point drag; largest difference from the "
+          f"engine's result {dpin:.3g}; K1 launches {k1_pin} (= {want} "
+          f"drags above HOST_PIN_MAX = {pinmode.HOST_PIN_MAX})")
+    if dpin > SURFACE_ATOL:
+        fails.append(f"find_transformation differs from the engine by "
+                     f"{dpin:.3g}")
+    if k1_pin != want:
+        fails.append(f"K1 launched {k1_pin} times for {want} device-route "
+                     f"drags")
+
+    view0 = view_of(poses[0]).astype(np.float64)
+    # Pixels around the sphere's image (radius ~450 px), hits and misses.
+    pix = np.random.default_rng(5).uniform((460, 40), (1460, 1040),
+                                           (SURFACE_PICKS, 2))
+    hits = [pc.ray_cast(accel, scene, p, False) for p in pix]
+    inv = np.linalg.inv(view0)
+    dirs = np.stack([(pix[:, 0] - WIDTH / 2) / FOCAL,
+                     (pix[:, 1] - HEIGHT / 2) / FOCAL,
+                     np.ones(SURFACE_PICKS)], -1) @ inv[:3, :3].T
+    origins = np.broadcast_to(inv[:3, 3], dirs.shape)
+    ref = raycast.raycast(
+        Mesh.create(track["verts"], track["tris"], device=device),
+        torch.as_tensor(origins.astype(np.float32), device=device),
+        torch.as_tensor(dirs.astype(np.float32), device=device), False)
+    ref_ids = ref.prim_id.cpu().numpy()
+    got_ids = np.array([raycast.INVALID_ID if h is None else h.primitive_id
+                        for h in hits])
+    hit = [i for i, h in enumerate(hits) if h is not None]
+    dpos = max((float(np.abs(hits[i].pos - ref.pos[i].cpu().numpy()).max())
+                for i in hit), default=0.0)
+    route = "host BVH" if accel._native_bvh() is not None else "device sweep"
+    print(f"  ray_cast ({route}): {SURFACE_PICKS} picks, {len(hit)} hits; "
+          f"primitive ids equal to the device ray cast's on "
+          f"{int((got_ids == ref_ids).sum())}; largest hit difference "
+          f"{dpos:.3g}")
+    if not np.array_equal(got_ids, ref_ids):
+        fails.append("ray_cast's primitive ids differ from the device ray "
+                     "cast's")
+
+    empty = os.path.join(workdir, "empty.db")
+    pc.Database(empty).close()
+    try:
+        pc.track_sequence(empty, 0, 3, scene, accel, None)
+        fails.append("a track on an empty DB raised nothing")
+    except pc.CppException as exc:
+        print(f"  track_sequence on an empty DB: CppException({exc.what()!r})")
+    cancel = pc.OpticalFlowThread(pc.VideoInfo(width, height, 0, n),
+                                  os.path.join(workdir, "cancel.db"))
+    _, errors, requested = drain(cancel, frames, stop_after=3)
+    print(f"  OpticalFlowThread stopped after {len(requested)} of {n} "
+          f"frames requested, errors {errors}")
+    if errors or not cancel.stopped or len(requested) >= n:
+        fails.append("the OpticalFlowThread did not stop cleanly")
+    if fails:
+        raise AssertionError("surface:\n" + "\n".join(fails))
+
+    # The surface's cost: direct, surface, surface, direct.
+    engine_info = VideoInfo(width, height, 0, n)
+
+    def analyze_direct(path):
+        t0 = time.perf_counter()
+        generate_optical_flow_database(engine_info, lambda f: frames[f], None,
+                                       path, device=device)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def drags_ms(one):
+        t0 = time.perf_counter()
+        for k in range(PIN_REPS):
+            one(k % 5)
+        return (time.perf_counter() - t0) * 1e3 / PIN_REPS
+
+    turns = {"tracking frames/s": [], "analyze frames/s": [],
+             "8-pin drag ms": []}
+    for i, how in enumerate(("direct", "surface", "surface", "direct")):
+        if how == "direct":
+            seconds = track["run"](track["db"], 0, last)[1]
+        else:
+            seconds = track_thread()[1]
+        turns["tracking frames/s"].append((how, last / seconds))
+        path = os.path.join(workdir, f"turn{i}.db")
+        seconds = (analyze_direct(path) if how == "direct"
+                   else analyze_thread(path)[0])
+        turns["analyze frames/s"].append((how, n / seconds))
+        turns["8-pin drag ms"].append((how, drags_ms(
+            (lambda k: crossover.pin_drag(pins, escene, k, device))
+            if how == "direct" else (lambda k: drag(pins, k)))))
+    for what, runs in turns.items():
+        print(f"  {what} (direct, through the surface, in turns): "
+              + ", ".join(f"{how} {value:.4f}" for how, value in runs)
+              + f" on {smi}")
+    return k1_track + k1_pin, lk_launches
 
 
 def main() -> None:
@@ -1148,31 +1521,39 @@ def main() -> None:
                           HEIGHT, PAN_STEP)
     print("LK kernel phase (K2, K3 vs plain torch, on the card):")
     patch_err, pos_err, lk_times, lk_bounds = lk_kernel_phase(device, frames)
-    print("analyze phase (generate_optical_flow_database on the card):")
-    lk_launches, analyze_fps = analyze_phase(device, frames)
-    print(f"analyze {analyze_fps:.2f} frames/s at 1920x1080 on {smi}")
-    print("tracking phase (track_sequence on the card):")
-    launches, fps, path_err = main_path_phase(device)
-    print(f"tracking {fps:.2f} frames/s at 1920x1080 on {smi}")
-    print("refine phase (refine_trajectory, config 4, on the card):")
-    refine_s, refine_iters = refine_phase(device)
-    print(f"refine {refine_s:.4f} s, {refine_iters} iterations, 250 frames "
-          f"on {smi}")
-    print("pin phase (find_transformation, config 2):")
-    pin_ms, pin_launches, pin_err = pin_phase(device)
-    print(f"pin drag {pin_ms:.4f} ms per 8-pin solve on {smi}")
+    with tempfile.TemporaryDirectory() as workdir:
+        print("analyze phase (generate_optical_flow_database on the card):")
+        lk_launches, analyze_fps, analyze_db = analyze_phase(device, frames,
+                                                             workdir)
+        print(f"analyze {analyze_fps:.2f} frames/s at 1920x1080 on {smi}")
+        print("tracking phase (track_sequence on the card):")
+        launches, fps, path_err, track = main_path_phase(device, workdir)
+        print(f"tracking {fps:.2f} frames/s at 1920x1080 on {smi}")
+        print("refine phase (refine_trajectory, config 4, on the card):")
+        refine_s, refine_iters, refine = refine_phase(device, workdir)
+        print(f"refine {refine_s:.4f} s, {refine_iters} iterations, 250 "
+              f"frames on {smi}")
+        print("pin phase (find_transformation, config 2):")
+        pin_ms, pin_launches, pin_err = pin_phase(device)
+        print(f"pin drag {pin_ms:.4f} ms per 8-pin solve on {smi}")
+        print("surface phase (polychase_core with no device argument):")
+        k1_surface, lk_surface = surface_phase(device, frames, analyze_db,
+                                               track, refine, workdir, smi)
 
     (k2_ms, k2_plain), (k3_ms, k3_plain) = lk_times
     (k2_bound_ms, k2_by), (k3_bound_ms, k3_by) = lk_bounds
     k1_ms, k1_plain, _, _, (k1_bound_ms, k1_by) = times[
         "loss1_ftol1e-05_f0_pp0"]
     # No single PyTorch call computes any of the three (library_ms null).
+    # ``launches`` counts the main path's runs (analyze; tracking and the pin
+    # drags), ``surface_launches`` the surface phase's gated runs.
     kernels = [{
         "name": "pnp_lm",
         "route": "cuda",
         "source": "polychase_tpu_torch/csrc/pnp_lm.cu",
         "replaces": "polychase_tpu/kernels/pnp_pallas.py:183",
         "launches": launches + pin_launches,
+        "surface_launches": k1_surface,
         "max_abs_err": max(max_err, path_err, pin_err),
         "ms": k1_ms,
         "plain_ms": k1_plain,
@@ -1185,6 +1566,7 @@ def main() -> None:
         "source": "polychase_tpu_torch/csrc/lk_prep.cu",
         "replaces": "polychase_tpu/kernels/lk_pallas.py:337",
         "launches": lk_launches[0],
+        "surface_launches": lk_surface[0],
         "max_abs_err": patch_err,
         "ms": k2_ms,
         "plain_ms": k2_plain,
@@ -1197,6 +1579,7 @@ def main() -> None:
         "source": "polychase_tpu_torch/csrc/lk_iter.cu",
         "replaces": "polychase_tpu/kernels/lk_pallas.py:496",
         "launches": lk_launches[1],
+        "surface_launches": lk_surface[1],
         "max_abs_err": pos_err,
         "ms": k3_ms,
         "plain_ms": k3_plain,

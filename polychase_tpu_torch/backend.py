@@ -36,6 +36,17 @@ def require_cuda() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def surface_device(device=None) -> torch.device:
+    """The device of a public entry point (``api``, its worker threads, the
+    CLI): ``None`` means the card, and without one this raises
+    ``RuntimeError``; nothing falls back to the CPU.  A CUDA device comes
+    back with its index, so a worker thread, whose current device is 0,
+    runs where its caller asked."""
+    if device is None or torch.device(device).type == "cuda":
+        require_cuda()
+    return as_device(torch.device("cuda") if device is None else device)
+
+
 class HostCopy:
     """Device tensors on their way to the host.
 

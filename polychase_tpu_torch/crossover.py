@@ -13,8 +13,12 @@ Usage, from the root of a checkout on a machine with a CUDA card:
 2. Pin mode's ≥ 3-pin solve: the host route (float64 numpy) against the
    device route (``solve_pnp``, K1 on the card) at 3 to 16,384 points.
 
-``refiner.BVH_TRIANGLE_THRESHOLD`` and ``pinmode.HOST_PIN_MAX`` are set
-from these tables.  ``chip_smoke.py`` prints the pin table too.
+``refiner.BVH_TRIANGLE_THRESHOLD`` is set from the first table.
+``pinmode.HOST_PIN_MAX`` is not set from the second: it is the JAX
+package's default, 4096, kept for the reference's answer, which the
+float32 device route leaves (``tests/pin_route_scan.py``).  The pin table
+gives what the float64 host route costs a drag, and so what a float64
+device route would have to beat.
 """
 
 from __future__ import annotations

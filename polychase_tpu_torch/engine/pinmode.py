@@ -12,7 +12,8 @@ Port of ``polychase_tpu/engine/pinmode.py``.  Dispatch on the pin count:
 
 The 1- and 2-pin updates and the matrix algebra are float64 host numpy.
 The ≥ 3-pin solve runs on the host (``pnp_host``, float64) up to
-``HOST_PIN_MAX`` points and above it through ``pnp.solve_pnp`` on the
+``HOST_PIN_MAX`` points, as the reference does, and above it through
+``pnp.solve_pnp`` on the
 caller's ``device``, which on a CUDA device is the whole-solve kernel K1
 and on the CPU its plain torch version.  The result is always a host
 value: CPU tensors, for the UI.
@@ -34,12 +35,18 @@ from .pnp import PnPOptions, solve_pnp
 from .pnp_host import solve_pnp_host
 
 # The largest point count solved on the host; above it the solve runs on
-# the device.  On an NVIDIA H100 80GB HBM3 at 700 W the device route (K1)
-# took 0.8-1.0 ms per drag at 3 to 8 points against 6.2-7.6 ms on the host
-# (the float64 LM runs its λ tail in numpy), and 2.0-2.7 ms against
-# 137-158 ms at 16,384 (PERF.md, section 6): every solve of 3 or more points
-# goes to the device.
-HOST_PIN_MAX = 2
+# the device.  The float32 device solve, the reference's or the port's,
+# leaves the float64 host solve's answer by more than 1e-4 in the view
+# matrix at 4 to 2,048 config-2 pins (up to 1.4e-2 with a free focal; within
+# 6e-5 at 3 and 4,096), while the two host routes agree to the bit
+# (tests/pin_route_scan.py).  The limit is the reference's own default
+# (``POLYCHASE_HOST_PIN_MAX``), so the port gives the reference's answer
+# wherever the reference solves on its host; it is not fitted to the
+# failing sizes.  The device route is faster (1.01 ms against 7.43 ms per
+# 8-pin drag, 1.47 against 40.05 ms at 4,096 pins, on an NVIDIA H100 80GB
+# HBM3 at 700 W and its host: ``python3 -m polychase_tpu_torch.crossover``)
+# but gives another pose.
+HOST_PIN_MAX = 4096
 
 
 class PinUpdate(NamedTuple):

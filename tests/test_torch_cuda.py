@@ -1,6 +1,7 @@
 """K1 (csrc/pnp_lm.cu), K2 (csrc/lk_prep.cu) and K3 (csrc/lk_iter.cu)
-against their plain torch versions on a CUDA card, and refine and pin mode
-on the card against the same work on the CPU.
+against their plain torch versions on a CUDA card, refine and pin mode
+on the card against the same work on the CPU, and the ``polychase_core``
+threads with no device argument on the card.
 
 These tests need the card and skip elsewhere.  The file imports no jax, so
 it runs on a machine without it:
@@ -19,6 +20,8 @@ from polychase_tpu_torch.engine.pnp import solve_arrays
 from polychase_tpu_torch.engine.pose import quat_to_mat_np
 from polychase_tpu_torch.kernels import lk_iter, lk_prep, pnp_lm
 from polychase_tpu_torch.synthetic import panning_clip
+
+from thread_drain import drain
 
 pytestmark = pytest.mark.cuda
 
@@ -405,8 +408,9 @@ def test_banded_solve_matches_dense_on_card(card, lam):
 
 
 def test_pin_device_route_launches_k1(card, monkeypatch):
-    """512 pins go through the device route, which launches K1 once; the
-    pose agrees with the host route within 1e-4."""
+    """8192 pins, above ``HOST_PIN_MAX``, go through the device route,
+    which launches K1 once; the pose agrees with the host route within
+    1e-4."""
     from polychase_tpu_torch.engine import pinmode
     from polychase_tpu_torch.engine.camera import OPENCV, Intrinsics
     from polychase_tpu_torch.engine.geometry import (
@@ -419,7 +423,7 @@ def test_pin_device_route_launches_k1(card, monkeypatch):
     q, t = orbit_poses(1)[0]
     mesh = Mesh.create(*uv_sphere(24, 32), device=card)
     pins = surface_pins(mesh, (q, t), 1800.0, 1920, 1080,
-                        np.random.default_rng(0), 512)
+                        np.random.default_rng(0), 8192)
     assert len(pins) > pinmode.HOST_PIN_MAX
     view = np.eye(4, dtype=np.float32)
     view[:3, :3] = quat_to_mat_np(q)
@@ -439,3 +443,72 @@ def test_pin_device_route_launches_k1(card, monkeypatch):
     assert pnp_lm.launches == before + 1
     np.testing.assert_allclose(dev.view_matrix.numpy(),
                                host.view_matrix.numpy(), atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The public surface: polychase_core's threads with no device argument
+# ---------------------------------------------------------------------------
+
+
+def test_tracker_thread_on_card(card, tmp_path):
+    """A TrackerThread built with no device tracks on the card: one K1
+    launch a frame, every pose within 5e-3 of the truth."""
+    import polychase_tpu_torch.polychase_core as pc
+    from polychase_tpu_torch.engine.geometry import Mesh
+    from polychase_tpu_torch.synthetic import (
+        build_flow_db, orbit_poses, uv_sphere,
+    )
+
+    verts, tris = uv_sphere(24, 32)
+    poses = orbit_poses(12)
+    db = str(tmp_path / "flow.db")
+    build_flow_db(db, Mesh.create(verts, tris, device=card), 1800.0, 1920,
+                  1080, poses, np.random.default_rng(0), 512, 0.0)
+    view = np.eye(4, dtype=np.float32)
+    view[:3, :3] = quat_to_mat_np(poses[0][0])
+    view[:3, 3] = poses[0][1]
+    scene = pc.SceneTransformations(np.eye(4), view, pc.CameraIntrinsics(
+        1800, 1800, 960, 540, 1, 1920, 1080, pc.CameraConvention.OpenCV))
+    before = pnp_lm.launches
+    got = drain(pc.TrackerThread(db, 0, 11, scene,
+                                  pc.AcceleratedMesh(verts, tris), False,
+                                  False, pc.BundleOptions()))
+    assert pnp_lm.launches == before + 11
+    assert [r.frame for r in got] == list(range(1, 12))
+    for r in got:
+        assert np.linalg.norm(r.pose.t - poses[r.frame][1]) < 5e-3
+
+
+def test_opticalflow_thread_on_card(card, tmp_path):
+    """An OpticalFlowThread built with no device analyzes on the card: K2
+    and K3 launch once per level of every solve, and the DB equals the
+    direct analyze's on the card to the bit."""
+    import polychase_tpu_torch.polychase_core as pc
+    from polychase_tpu_torch.io.database import Database
+
+    n = 6
+    frames = panning_clip(np.random.default_rng(0), n, 320, 240, (3, 2))
+    info = pc.VideoInfo(320, 240, 0, n)
+    direct, threaded = str(tmp_path / "direct.db"), str(tmp_path / "t.db")
+    pc.generate_optical_flow_database(info, lambda f: frames[f], None,
+                                      direct)
+    before = (lk_prep.launches, lk_iter.launches)
+    progress = drain(pc.OpticalFlowThread(info, threaded), frames)
+    levels = lk.num_pyramid_levels(240, 320, lk.LKOptions())
+    assert (lk_prep.launches - before[0], lk_iter.launches - before[1]) == (
+        levels * n, levels * n)
+    assert progress[-1] == (1.0, "Done")
+    a, b = Database(direct), Database(threaded)
+    try:
+        for f in range(n):
+            np.testing.assert_array_equal(a.read_keypoints(f),
+                                          b.read_keypoints(f))
+            for g in a.find_optical_flows_from_image(f):
+                fa, fb = a.read_image_pair_flow(f, g), b.read_image_pair_flow(
+                    f, g)
+                np.testing.assert_array_equal(fa.src_kps_indices,
+                                              fb.src_kps_indices)
+                np.testing.assert_array_equal(fa.tgt_kps, fb.tgt_kps)
+    finally:
+        a.close()
+        b.close()

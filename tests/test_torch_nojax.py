@@ -1,5 +1,6 @@
 """The port runs with jax and the JAX package unimportable: a tiny track, a
-tiny analyze, and a tiny refine followed by a pin drag, each in a fresh
+tiny analyze, a tiny refine followed by a pin drag, and the tracker and
+optical-flow threads of its ``polychase_core``, each in a fresh
 process whose import system refuses ``jax``, ``jaxlib``, ``polychase_tpu``
 and every ``polychase_tpu.*`` module (``polychase_tpu_torch`` is another
 top-level name and stays importable)."""
@@ -180,6 +181,71 @@ REFINE_AND_PIN = REFUSE_JAX + textwrap.dedent(
 )
 
 
+SURFACE = REFUSE_JAX + textwrap.dedent(
+    """
+    import time
+
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+
+    import polychase_tpu_torch.polychase_core as pc
+    from polychase_tpu_torch.engine.geometry import Mesh
+    from polychase_tpu_torch.engine.pose import quat_to_mat_np
+    from polychase_tpu_torch.synthetic import (
+        build_flow_db, orbit_poses, panning_clip, uv_sphere,
+    )
+
+    def drain(thread, frames=None):
+        msgs, deadline = [], time.monotonic() + 60
+        while time.monotonic() < deadline:
+            msg = thread.try_pop()
+            if msg is None:
+                time.sleep(0.005)
+            elif msg is True:
+                thread.join()
+                return msgs
+            elif isinstance(msg, Exception):
+                raise msg
+            elif isinstance(msg, pc.OpticalFlowRequest):
+                thread.provide_frame(msg.frame_id, frames[msg.frame_id])
+            else:
+                msgs.append(msg)
+        raise AssertionError("no done message within 60 s")
+
+    verts, tris = uv_sphere(12, 16)
+    poses = orbit_poses(8)
+    view = np.eye(4, dtype=np.float32)
+    view[:3, :3] = quat_to_mat_np(poses[0][0])
+    view[:3, 3] = poses[0][1]
+    scene = pc.SceneTransformations(
+        np.eye(4), view, pc.CameraIntrinsics(
+            1800, 1800, 960, 540, 1, 1920, 1080, pc.CameraConvention.OpenCV))
+    frames = panning_clip(np.random.default_rng(0), 6, 128, 96, (2, 1))
+    with tempfile.TemporaryDirectory() as td:
+        db = os.path.join(td, "flow.db")
+        build_flow_db(db, Mesh.create(verts, tris, device="cpu"), 1800.0,
+                      1920, 1080, poses, np.random.default_rng(0), 128, 0.0)
+        got = drain(pc.TrackerThread(
+            db, 0, 7, scene, pc.AcceleratedMesh(verts, tris), False, False,
+            pc.BundleOptions(), device="cpu"))
+        flow_db = os.path.join(td, "analyze.db")
+        progress = drain(pc.OpticalFlowThread(
+            pc.VideoInfo(128, 96, 0, 6), flow_db, device="cpu"), frames)
+        out = pc.Database(flow_db)
+        kps = out.read_keypoints(5)
+        out.close()
+    assert [r.frame for r in got] == list(range(1, 8)), got
+    for r in got:
+        assert np.linalg.norm(r.pose.t - poses[r.frame][1]) < 5e-3
+    assert progress[-1] == (1.0, "Done") and kps.shape[0] > 50
+    assert_nothing_leaked()
+    print("ran the tracker and optical-flow threads without jax")
+    """
+)
+
+
 def _run(script):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -205,3 +271,10 @@ def test_port_refines_and_pins_without_jax():
     proc = _run(REFINE_AND_PIN)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "refined and pinned without jax" in proc.stdout
+
+
+def test_port_threads_run_without_jax():
+    proc = _run(SURFACE)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert ("ran the tracker and optical-flow threads without jax"
+            in proc.stdout)

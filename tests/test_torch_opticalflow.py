@@ -68,7 +68,17 @@ def test_analyze_matches_jax(tmp_path, rng, monkeypatch):
         lambda p, m: progress.append((p, m)) or True, got_db,
         convert.gftt_options(opts), device=CPU)
     assert progress[-1] == (1.0, "Done")
+    flows = assert_flows_match(ref_db, got_db, frames)
+    # the clip pans (2, 1) px per frame: frame f → f+1 flows by (-2, -1)
+    f3 = flows[(3, 4)]
+    med = np.median(np.array([t - np.array(s) for s, t in f3.items()]), 0)
+    np.testing.assert_allclose(med, [-2.0, -1.0], atol=0.1)
 
+
+def assert_flows_match(ref_db, got_db, frames):
+    """The port's DB against the reference's on the same clip, with the LK
+    bounds of the module docstring; returns the port's flows."""
+    n = len(frames)
     ref_kps, ref_flows = _flows(ref_db, n)
     kps, flows = _flows(got_db, n)
     assert set(flows) == set(ref_flows)
@@ -105,10 +115,7 @@ def test_analyze_matches_jax(tmp_path, rng, monkeypatch):
         nxt, st, _ = TL.calc_optical_flow(src, dst, np.array([p]))
         assert st[0]
         assert np.abs(nxt[0] - ref_flows[(f, g)][p]).max() < 0.05
-    # the clip pans (2, 1) px per frame: frame f → f+1 flows by (-2, -1)
-    f3 = flows[(3, 4)]
-    med = np.median(np.array([t - np.array(s) for s, t in f3.items()]), 0)
-    np.testing.assert_allclose(med, [-2.0, -1.0], atol=0.1)
+    return flows
 
 
 def test_panning_clip_ground_truth(tmp_path):
