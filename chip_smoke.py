@@ -78,10 +78,29 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    analyze frames/s and the 8-pin drag's ms, direct and through the
    surface (the threads, ``find_transformation``), in the order direct,
    surface, surface, direct.
-10. Prints the card, the kernels' JSON line (time, plain time, bound and
+10. Segments phase: the segment-parallel paths.  ``track_segments`` on
+    the tracking clip in 4 segments of 30 frames seeded from the truth at
+    frames 0, 30, 60 and 90 (K1 at S = 4, N = 8192 a solve): every pose
+    within the ground-truth thresholds and within 1e-4 (q) / 1e-3 (t) of
+    the sequential ``track_camera_trajectory`` from the same seed, K1
+    launched once per step (29), not once per segment frame (116), and K1
+    held against its plain version on S = 4 inputs recorded from the path.
+    ``refine_segments`` on config 4's clip split at keyframes 0, 50, 100,
+    150, 200, 249 (5 segments of ~51 frames, the keyframes true, so the
+    stack takes the batched banded solve, nb = 7): each segment's cost
+    falls, its anchors are untouched to the bit, its mean translation
+    error (carried to the true focal, as for free-intrinsics tracking)
+    falls below 0.6× the initial, and its translations lie within 2e-4 of
+    the sequential ``refine_trajectory``'s.  Then through
+    ``polychase_core`` with no device: ``device_count``, ``track_segments``
+    and a ``RefineSegmentsThread``, each equal to the engine call within
+    1e-6.  Prints tracking frames/s and refine seconds, sequential against
+    segment-parallel, in turns (sequential, parallel, parallel,
+    sequential).
+11. Prints the card, the kernels' JSON line (time, plain time, bound and
     what sets it, launches on the main path (the analyze, tracking and pin
-    phases) and apart in the surface phase, largest difference) and, last,
-    ``{"ok": true, ...}``.
+    phases) and apart in the surface and segments phases, largest
+    difference) and, last, ``{"ok": true, ...}``.
 
 Any failed check raises, so the script exits non-zero without the last line.
 It refuses to run without a CUDA device.
@@ -136,6 +155,13 @@ REFINE_LABELS = ("refine.raycast", "refine.normal_equations", "refine.solve",
                  "refine.cost", "refine.step")
 # Pin mode, config 2.
 PIN_REPS, PIN_BIG, PIN_ROUTE_ATOL = 20, 16384, 1e-4
+# Segments: the tracking clip's seeds, config 4's keyframes, and the
+# bars of tests/test_torch_tracker.py (batched against sequential
+# tracking) and tests/test_segments_parallel.py (refine).
+TRACK_SEEDS, TRACK_SEGMENT = (0, 30, 60, 90), 30
+REFINE_KEYS = (0, 50, 100, 150, 200, 249)
+Q_PAIR, T_PAIR = 1e-4, 1e-3
+REFINE_T_SHARE, REFINE_SEQ_ATOL = 0.6, 2e-4
 
 
 def nvidia_smi() -> str:
@@ -492,8 +518,16 @@ def k1_bound(n, n_params, iterations):
     """K1 on one solve of n points: each input read once (X, x, weight,
     mask, 16 params), the 19-float row written once; iterations + 1 passes
     of the per-point work."""
-    nbytes = n * (12 + 8 + 4 + 1) + 16 * 4 + 19 * 4
-    return bound_ms(nbytes, (iterations + 1) * n * K1_OPS_POINT_ITER[n_params])
+    return k1_batch_bound(n, n_params, [iterations])
+
+
+def k1_batch_bound(n, n_params, iterations):
+    """K1 on one launch of ``len(iterations)`` solves of n points each, each
+    solve with its own iteration count: the solves' bytes and operations
+    summed."""
+    nbytes = len(iterations) * (n * (12 + 8 + 4 + 1) + 16 * 4 + 19 * 4)
+    ops = sum(it + 1 for it in iterations) * n * K1_OPS_POINT_ITER[n_params]
+    return bound_ms(nbytes, ops)
 
 
 def k2_bound(n, hp, wp, win):
@@ -771,9 +805,11 @@ def translation_err(r, t_gt, free_intrinsics: bool) -> float:
     return float(np.linalg.norm(t - np.asarray(t_gt, np.float64)))
 
 
-def main_path_inputs_check(inputs):
-    """K1 against its plain version on recorded main-path solver inputs;
-    returns the largest pose difference."""
+def main_path_inputs_check(inputs, path="main-path"):
+    """K1 against its plain version on solver inputs recorded from a path;
+    times the last launch (``k1_report``).  Returns the largest pose
+    difference and that launch's (kernel ms, plain ms, ms per iteration,
+    floor ms, its 19-float results)."""
     from polychase_tpu_torch.engine.pnp import solve_arrays
     from polychase_tpu_torch.kernels.pnp_lm import solve_arrays_lm
 
@@ -782,17 +818,18 @@ def main_path_inputs_check(inputs):
         got = solve_arrays_lm(*args, **kw).cpu().numpy()
         ref = solve_arrays(*args, **kw).cpu().numpy()
         opt = kw["opt_f"] or kw["opt_pp"]
-        dpose, f = compare(f"main-path solve {i}", got, ref, None, opt)
+        dpose, f = compare(f"{path} launch {i}", got, ref, None, opt)
         max_err = max(max_err, dpose)
         fails += f
     if fails or not inputs:
-        raise AssertionError("main-path inputs:\n" + "\n".join(fails))
-    print(f"  K1 vs plain on {len(inputs)} recorded main-path solves: max "
+        raise AssertionError(f"{path} inputs:\n" + "\n".join(fails))
+    S, N = (int(n) for n in inputs[-1][0][0].shape[:2])
+    print(f"  K1 vs plain on {len(inputs)} recorded {path} launches "
+          f"({sum(int(a[0].shape[0]) for a, _ in inputs)} solves): max "
           f"|dpose| {max_err:.3g}")
     args, kw = inputs[-1]
-    k1_report(f"the last one (S=1, N={int(args[0].shape[1])})", args, kw,
-              got, 3)
-    return max_err
+    timing = k1_report(f"the last one (S={S}, N={N})", args, kw, got, 3)
+    return max_err, (*timing, got)
 
 
 def main_path_phase(device, workdir, *, n_frames=N_FRAMES,
@@ -893,7 +930,7 @@ def main_path_phase(device, workdir, *, n_frames=N_FRAMES,
         run(db_path, 0, 8)
     finally:
         tracker.solve_arrays_lm = real
-    path_err = main_path_inputs_check(inputs)
+    path_err, _ = main_path_inputs_check(inputs)
 
     pnp_lm.launches = 0
     fwd, fwd_s = run(db_path, 0, n_frames - 1)
@@ -1172,7 +1209,7 @@ def pin_phase(device):
                              f"device-route drags")
     if diff > PIN_ROUTE_ATOL:
         raise AssertionError(f"device and host routes differ by {diff:.3g}")
-    return ms, launches, main_path_inputs_check(inputs)
+    return ms, launches, main_path_inputs_check(inputs)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -1488,6 +1525,314 @@ def surface_phase(device, frames, analyze_db, track, refine, workdir, smi):
     return k1_track + k1_pin, lk_launches
 
 
+# ---------------------------------------------------------------------------
+# Segments phase
+# ---------------------------------------------------------------------------
+
+
+def segment_cost(db_path, traj, mesh, device, opts) -> float:
+    """The refine cost of ``traj`` (its prims cast afresh), on ``device``."""
+    from polychase_tpu_torch.engine import refiner as R
+    from polychase_tpu_torch.io.database import Database
+
+    db = Database(db_path)
+    try:
+        data = R.build_refiner_data(db, traj, mesh, np.eye(4), device=device)
+    finally:
+        db.close()
+    eye = torch.eye(4, device=device)
+    _, cost = R.refresh_prims_and_cost(
+        R.traj_to_params(traj, device=device), data, mesh, eye, eye,
+        mesh.triangle_corners(), opts.loss_scale, loss_type=opts.loss_type)
+    return float(cost)
+
+
+def segments_phase(device, track, refine, smi):
+    """The segment-parallel paths on the tracking clip and config 4, direct
+    and through ``polychase_core`` (module docstring, item 10).  Returns
+    K1's launches in the gated ``track_segments`` run and K1's largest pose
+    difference from its plain version on that path's recorded S = 4
+    launches."""
+    import polychase_tpu_torch.polychase_core as pc
+    from polychase_tpu_torch.engine import refiner as R
+    from polychase_tpu_torch.engine import tracker
+    from polychase_tpu_torch.engine.camera import OPENCV, CameraState
+    from polychase_tpu_torch.engine.camera import Intrinsics
+    from polychase_tpu_torch.engine.geometry import Mesh
+    from polychase_tpu_torch.engine.levmarq import CAUCHY, BundleOptions
+    from polychase_tpu_torch.engine.pose import Pose
+    from polychase_tpu_torch.engine.trajectory import CameraTrajectory
+    from polychase_tpu_torch.io.database import Database
+    from polychase_tpu_torch.kernels import pnp_lm
+    from polychase_tpu_torch.parallel.segments import refine_segments
+    from polychase_tpu_torch.parallel.tracking import track_segments
+
+    fails = []
+    eye = np.eye(4, dtype=np.float32)
+    intr = Intrinsics.create(FOCAL, FOCAL, WIDTH / 2, HEIGHT / 2, 1.0, WIDTH,
+                             HEIGHT, OPENCV, device="cpu")
+
+    def state(q, t):
+        return CameraState(intr, Pose(torch.tensor(np.asarray(q, np.float32)),
+                                      torch.tensor(np.asarray(t, np.float32))))
+
+    # Tracking: four 30-frame segments of the tracking clip.
+    poses = track["poses"]
+    mesh = Mesh.create(track["verts"], track["tris"], device=device)
+    track_opts = BundleOptions(loss_type=CAUCHY)  # track_segments' default
+    steps = TRACK_SEGMENT - 1
+
+    def seeded():
+        out = []
+        for a in TRACK_SEEDS:
+            traj = CameraTrajectory(a, TRACK_SEGMENT)
+            traj.set(a, state(*poses[a]))
+            out.append(traj)
+        return out
+
+    def parallel_track():
+        trajs = seeded()
+        t0 = time.perf_counter()
+        counts = track_segments(track["db"], trajs, eye, mesh,
+                                bundle_opts=track_opts, device=device)
+        return trajs, counts, time.perf_counter() - t0
+
+    def sequential_track():
+        trajs = seeded()
+        t0 = time.perf_counter()
+        db = Database(track["db"])
+        try:
+            for traj in trajs:
+                a = traj.first_frame
+                tracker.track_camera_trajectory(
+                    db, traj, a, a + steps, eye, mesh,
+                    bundle_opts=track_opts, device=device)
+        finally:
+            db.close()
+        return trajs, time.perf_counter() - t0
+
+    # Warm-up, recording K1's inputs on the path.
+    inputs = []
+    real = tracker.solve_arrays_lm
+
+    def record(*args, **kw):
+        inputs.append((args, kw))
+        return real(*args, **kw)
+
+    tracker.solve_arrays_lm = record
+    try:
+        parallel_track()
+    finally:
+        tracker.solve_arrays_lm = real
+    seg_err, (k1_ms, k1_plain, _, _, got) = main_path_inputs_check(
+        inputs, "track_segments")
+    (S, N), kw = inputs[-1][0][0].shape[:2], inputs[-1][1]
+    k1_b = k1_batch_bound(int(N), 9 if (kw["opt_f"] or kw["opt_pp"]) else 6,
+                          got[:, 11].astype(int).tolist())
+    print(f"  K1 at S = {S}, N = {N}: {k1_ms:.4f} ms a launch, "
+          f"{k1_ms / S:.4f} ms a solve (plain {k1_plain:.4f} ms a launch); "
+          f"bound {k1_b[0]:.6f} ms by {k1_b[1]}, {k1_b[0] / k1_ms:.4f} of it")
+    if (S, len(inputs)) != (len(TRACK_SEEDS), steps):
+        fails.append(f"track_segments launched {len(inputs)} solves of "
+                     f"S = {S}, want {steps} of S = {len(TRACK_SEEDS)}")
+
+    pnp_lm.launches = 0
+    trajs, counts, _ = parallel_track()
+    launches = pnp_lm.launches
+    seq, _ = sequential_track()
+    rot = terr = dq = dt = 0.0
+    for a, b in zip(trajs, seq):
+        for f in range(a.first_frame, a.last_frame + 1):
+            sa, sb = a.get(f), b.get(f)
+            q, t = sa.pose.q.numpy(), sa.pose.t.numpy()
+            rot = max(rot, quat_err(q, poses[f][0]))
+            terr = max(terr, float(np.linalg.norm(t - poses[f][1])))
+            dq = max(dq, float(np.abs(q - sb.pose.q.numpy()).max()))
+            dt = max(dt, float(np.abs(t - sb.pose.t.numpy()).max()))
+    print(f"  track_segments: {len(TRACK_SEEDS)} segments x {steps} steps, "
+          f"{int(counts.min())}-{int(counts.max())} correspondences a solve; "
+          f"max rot err {rot:.3g} rad, max t err {terr:.3g}; against the "
+          f"sequential tracks |dq| {dq:.3g}, |dt| {dt:.3g}; K1 launches "
+          f"{launches} (= {steps} steps)")
+    if launches != steps:
+        fails.append(f"K1 launched {launches} times for {steps} steps")
+    if counts.shape != (len(TRACK_SEEDS), steps) or (counts < 3).any():
+        fails.append(f"track_segments counts {counts.shape}, min "
+                     f"{int(counts.min())}")
+    if rot > ROT_ERR_MAX or terr > T_ERR_MAX:
+        fails.append("a track_segments pose is off the ground truth")
+    if dq > Q_PAIR or dt > T_PAIR:
+        fails.append(f"track_segments differs from the sequential tracks by "
+                     f"{dq:.3g} (q) / {dt:.3g} (t)")
+
+    # Refine: config 4 split at its keyframes, which are true.
+    rposes = refine["poses"]
+    rmesh = Mesh.create(refine["verts"], refine["tris"], device=device)
+    ropts = BundleOptions(loss_type=CAUCHY, loss_scale=1.0,
+                          max_iterations=REFINE_ITERS)
+    start = refine["noisy"]()
+    bounds = list(zip(REFINE_KEYS[:-1], REFINE_KEYS[1:]))
+
+    def segments():
+        out = []
+        for a, b in bounds:
+            traj = CameraTrajectory(a, b - a + 1)
+            for f in range(a, b + 1):
+                s = start.get(f)
+                traj.set(f, state(*rposes[f]) if f in REFINE_KEYS else
+                         CameraState(s.intrinsics, Pose(s.pose.q.clone(),
+                                                        s.pose.t.clone())))
+            out.append(traj)
+        return out
+
+    def parallel_refine():
+        segs = segments()
+        t0 = time.perf_counter()
+        out = refine_segments(refine["db"], segs, eye, rmesh,
+                              optimize_focal_length=True, bundle_opts=ropts,
+                              device=device)
+        torch.cuda.synchronize(device)
+        return out, time.perf_counter() - t0
+
+    def sequential_refine():
+        segs = segments()
+        t0 = time.perf_counter()
+        for traj in segs:
+            R.refine_trajectory(refine["db"], traj, eye, rmesh,
+                                optimize_focal_length=True,
+                                bundle_opts=ropts, device=device)
+        torch.cuda.synchronize(device)
+        return segs, time.perf_counter() - t0
+
+    banded = []
+    real_band = R.damped_block_tridiag_solve
+    R.damped_block_tridiag_solve = (
+        lambda *a, **k: banded.append(k) or real_band(*a, **k))
+    try:
+        parallel_refine()
+    finally:
+        R.damped_block_tridiag_solve = real_band
+    inputs = segments()
+    out, _ = parallel_refine()
+    seq, _ = sequential_refine()
+    print(f"  refine_segments: {len(bounds)} segments of "
+          f"{[b - a + 1 for a, b in bounds]} frames, the batched banded solve "
+          f"{banded[0] if banded else 'NOT taken'}")
+    if not banded or banded[0]["nb"] < 6:
+        fails.append("refine_segments did not take the batched banded solve")
+
+    def fields(traj, f):
+        s = traj.get(f)
+        return (s.pose.q.numpy(), s.pose.t.numpy(), float(s.intrinsics.fy))
+
+    def mean_t_err(traj, frames, carried):
+        return float(np.mean([translation_err(traj.get(f), rposes[f][1],
+                                              carried) for f in frames]))
+
+    dseq = 0.0
+    for (a, b), t_in, t_out, t_seq in zip(bounds, inputs, out, seq):
+        frames = range(a, b + 1)
+        # The focal is free, and the clip pins down depth only with it:
+        # the refined translation is judged carried to the true focal, as
+        # translation_err does for the free-intrinsics tracking run (the
+        # start has the true focal, so there the two agree).
+        before = mean_t_err(t_in, frames, False)
+        raw, after = (mean_t_err(t_out, frames, c) for c in (False, True))
+        c0 = segment_cost(refine["db"], t_in, rmesh, device, ropts)
+        c1 = segment_cost(refine["db"], t_out, rmesh, device, ropts)
+        d = max(float(np.abs(fields(t_out, f)[1] - fields(t_seq, f)[1]).max())
+                for f in frames)
+        dseq = max(dseq, d)
+        print(f"    segment {a}-{b}: cost {c0:.4f} -> {c1:.4f}, mean t err "
+              f"{before:.3g} -> {after:.3g} ({after / before:.3f} of it; "
+              f"{raw:.3g} before the focal trade-off); against the "
+              f"sequential refine |dt| {d:.3g}")
+        if not c1 < c0:
+            fails.append(f"segment {a}-{b}: the cost did not fall")
+        if not after < REFINE_T_SHARE * before:
+            fails.append(f"segment {a}-{b}: mean t err {after:.3g} not below "
+                         f"{REFINE_T_SHARE} x {before:.3g}")
+        for f in (a, b):
+            x, y = fields(t_in, f), fields(t_out, f)
+            if not (np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
+                    and x[2] == y[2]):
+                fails.append(f"segment {a}-{b}: anchor frame {f} moved")
+    if dseq > REFINE_SEQ_ATOL:
+        fails.append(f"refine_segments differs from the sequential refines "
+                     f"by {dseq:.3g}")
+
+    # Through polychase_core, with no device argument.
+    pintr = pc.CameraIntrinsics(FOCAL, FOCAL, WIDTH / 2, HEIGHT / 2, 1.0,
+                                WIDTH, HEIGHT, pc.CameraConvention.OpenCV)
+
+    def facade(traj, frames):
+        ct = pc.CameraTrajectory(traj.first_frame, traj.count)
+        for f in frames:
+            s = traj.get(f)
+            ct.set(f, pc.CameraState(pintr, pc.Pose(s.pose.q.numpy(),
+                                                    s.pose.t.numpy())))
+        return ct
+
+    def diff(cts, engine):
+        return max(max(float(np.abs(ct.get(f).pose.q
+                                    - e.get(f).pose.q.numpy()).max()),
+                       float(np.abs(ct.get(f).pose.t
+                                    - e.get(f).pose.t.numpy()).max()))
+                   for ct, e in zip(cts, engine)
+                   for f in range(e.first_frame, e.last_frame + 1))
+
+    if pc.device_count() != torch.cuda.device_count():
+        fails.append(f"device_count() {pc.device_count()}")
+    cts = [facade(t, [t.first_frame]) for t in seeded()]
+    pnp_lm.launches = 0
+    pc_counts = pc.track_segments(track["db"], cts, eye,
+                                  pc.AcceleratedMesh(track["verts"],
+                                                     track["tris"]))
+    d_track = diff(cts, trajs)
+    rts = [facade(t, range(t.first_frame, t.last_frame + 1))
+           for t in segments()]
+    ropts_pc = pc.BundleOptions()
+    ropts_pc.loss_type = pc.LossType.Cauchy
+    ropts_pc.max_iterations = REFINE_ITERS
+    msgs, errors, _ = drain(pc.RefineSegmentsThread(
+        refine["db"], rts, eye, pc.AcceleratedMesh(refine["verts"],
+                                                   refine["tris"]),
+        True, False, ropts_pc))
+    if errors:
+        raise errors[0]
+    d_refine = diff(rts, out)
+    print(f"  polychase_core: device_count() {pc.device_count()}; "
+          f"track_segments counts equal: "
+          f"{np.array_equal(pc_counts, counts)}, poses within {d_track:.3g} "
+          f"of the engine's, K1 launches {pnp_lm.launches}; "
+          f"RefineSegmentsThread messages {[m.message for m in msgs]}, poses "
+          f"within {d_refine:.3g} of the engine's")
+    if not np.array_equal(pc_counts, counts) or d_track > SURFACE_ATOL:
+        fails.append("pc.track_segments differs from the engine call")
+    if len(msgs) != 1 or d_refine > SURFACE_ATOL:
+        fails.append("RefineSegmentsThread differs from the engine call")
+    if fails:
+        raise AssertionError("segments:\n" + "\n".join(fails))
+
+    # Sequential against segment-parallel, in turns.
+    frames = len(TRACK_SEEDS) * steps
+    turns = {"tracking frames/s": [], "refine s": []}
+    for how in ("sequential", "parallel", "parallel", "sequential"):
+        seconds = (sequential_track()[1] if how == "sequential"
+                   else parallel_track()[2])
+        turns["tracking frames/s"].append((how, frames / seconds))
+        turns["refine s"].append((how, (sequential_refine() if how ==
+                                        "sequential" else
+                                        parallel_refine())[1]))
+    for what, runs in turns.items():
+        n = frames if what.startswith("track") else REFINE_KEYS[-1] + 1
+        print(f"  {what} ({n} "
+              f"frames; sequential, segment-parallel, in turns): "
+              + ", ".join(f"{how} {value:.4f}" for how, value in runs)
+              + f" on {smi}")
+    return launches, seg_err
+
+
 def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     if not torch.cuda.is_available():
@@ -1539,6 +1884,8 @@ def main() -> None:
         print("surface phase (polychase_core with no device argument):")
         k1_surface, lk_surface = surface_phase(device, frames, analyze_db,
                                                track, refine, workdir, smi)
+        print("segments phase (track_segments and refine_segments):")
+        k1_segments, seg_err = segments_phase(device, track, refine, smi)
 
     (k2_ms, k2_plain), (k3_ms, k3_plain) = lk_times
     (k2_bound_ms, k2_by), (k3_bound_ms, k3_by) = lk_bounds
@@ -1546,7 +1893,8 @@ def main() -> None:
         "loss1_ftol1e-05_f0_pp0"]
     # No single PyTorch call computes any of the three (library_ms null).
     # ``launches`` counts the main path's runs (analyze; tracking and the pin
-    # drags), ``surface_launches`` the surface phase's gated runs.
+    # drags), ``surface_launches`` the surface phase's gated runs and
+    # ``segments_launches`` the gated ``track_segments`` run.
     kernels = [{
         "name": "pnp_lm",
         "route": "cuda",
@@ -1554,7 +1902,8 @@ def main() -> None:
         "replaces": "polychase_tpu/kernels/pnp_pallas.py:183",
         "launches": launches + pin_launches,
         "surface_launches": k1_surface,
-        "max_abs_err": max(max_err, path_err, pin_err),
+        "segments_launches": k1_segments,
+        "max_abs_err": max(max_err, path_err, pin_err, seg_err),
         "ms": k1_ms,
         "plain_ms": k1_plain,
         "bound_ms": k1_bound_ms,

@@ -13,8 +13,11 @@ device and gets the card, and a process without one gets a
 :class:`CppException`, never a run on the CPU.  The tests pass
 ``device="cpu"``, which runs the kernels' plain torch versions.
 
-The multi-device extensions of the reference (``device_count``,
-``refine_segments``, ``track_segments``) are not ported here.
+The reference's multi-device extensions are here too: ``device_count``,
+and ``refine_segments`` and ``track_segments``, which solve independent
+keyframe segments together.  Their ``device=None`` means every visible card
+(again a :class:`CppException` without one); a sequence of devices splits
+the segments over them.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from .backend import surface_device
+from .backend import surface_device, surface_devices
 from .engine import camera as _camera
 from .engine import geometry as _geometry
 from .engine import gftt as _gftt
@@ -727,3 +730,94 @@ def refine_trajectory(
         (bundle_opts or BundleOptions())._to_engine(),
         device=device,
     )
+
+
+# ---------------------------------------------------------------------------
+# Extensions beyond the reference surface (multi-device, segment-parallel)
+# ---------------------------------------------------------------------------
+
+
+def device_count() -> int:
+    """Number of visible CUDA devices (extension); 0 without a card, so
+    the addon's ``device_count() > 1`` takes its sequential path."""
+    return int(torch.cuda.device_count())
+
+
+def _segment_mesh(mesh: AcceleratedMesh, devices) -> _geometry.Mesh:
+    first = devices[0] if isinstance(devices, list) else devices
+    return mesh._to_engine(first)
+
+
+@_engine_errors
+def refine_segments(
+    database_path: str,
+    camera_trajectories,
+    model_matrix,
+    mesh: AcceleratedMesh,
+    optimize_focal_length: bool,
+    optimize_principal_point: bool,
+    bundle_opts: BundleOptions = None,
+    *,
+    device=None,
+) -> None:
+    """Refine independent keyframe segments together (extension).
+
+    The reference refines refine-all's segments one after another; here
+    they are one stack that takes every LM iteration of all segments at
+    once (``parallel.segments``), split over the devices when there are
+    several.  Each trajectory is refined in place."""
+    from .parallel.segments import refine_segments as _rs
+
+    devices = surface_devices(device)
+    refined = _rs(
+        database_path,
+        [ct._traj for ct in camera_trajectories],
+        np.asarray(model_matrix, np.float32).reshape(4, 4),
+        _segment_mesh(mesh, devices),
+        optimize_focal_length,
+        optimize_principal_point,
+        (bundle_opts or BundleOptions())._to_engine(),
+        device=devices,
+    )
+    for ct, new in zip(camera_trajectories, refined):
+        for fid in range(new.first_frame, new.last_frame + 1):
+            ct._traj.set(fid, new.get(fid))
+
+
+@_engine_errors
+def track_segments(
+    database_path: str,
+    camera_trajectories,
+    model_matrix,
+    mesh: AcceleratedMesh,
+    optimize_focal_length: bool = False,
+    optimize_principal_point: bool = False,
+    bundle_opts: BundleOptions = None,
+    *,
+    device=None,
+):
+    """Track independent seeded segments together (extension).
+
+    Each trajectory must have its first frame filled (the seed keyframe);
+    every frame step solves all segments' next frames at once, on a card
+    one launch of K1 (``parallel.tracking``).  Returns the per-segment
+    correspondence counts, (S, steps)."""
+    from .parallel.tracking import track_segments as _ts
+
+    devices = surface_devices(device)
+    if bundle_opts is None:
+        bundle_opts = BundleOptions()
+        bundle_opts.loss_type = LossType.Cauchy
+    return _ts(
+        database_path,
+        [ct._traj for ct in camera_trajectories],
+        np.asarray(model_matrix, np.float32).reshape(4, 4),
+        _segment_mesh(mesh, devices),
+        optimize_focal_length,
+        optimize_principal_point,
+        bundle_opts._to_engine(),
+        device=devices,
+    )
+
+
+__all__ += ["device_count", "refine_segments", "track_segments"]

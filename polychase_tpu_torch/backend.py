@@ -11,6 +11,8 @@ here, once, when the package is imported.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -45,6 +47,29 @@ def surface_device(device=None) -> torch.device:
     if device is None or torch.device(device).type == "cuda":
         require_cuda()
     return as_device(torch.device("cuda") if device is None else device)
+
+
+def surface_devices(device=None):
+    """The devices of a segment-parallel entry point: ``None`` means every
+    visible card, and without one this raises ``RuntimeError``; else one
+    device or a sequence of them, each as :func:`surface_device` gives it.
+    Returns one device or a list."""
+    if device is None:
+        require_cuda()
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    if isinstance(device, (list, tuple)):
+        return [surface_device(d) for d in device]
+    return surface_device(device)
+
+
+def current(device: torch.device):
+    """``device`` made the current CUDA device for the block (a kernel
+    launches on the current device, whatever its tensors' device); nothing
+    for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 class HostCopy:

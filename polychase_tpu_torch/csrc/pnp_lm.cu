@@ -64,6 +64,7 @@
 // reference.  Sums are taken in another order than the plain version's, so
 // iteration counts can differ at exact decision boundaries.
 
+#include <atomic>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -745,18 +746,26 @@ size_t stage_bytes(int per_block, int staged) {
 }
 
 // Allows the largest staged slice and, for blocks that form clusters,
-// cluster sizes above the portable 8; once per instantiation.
+// cluster sizes above the portable 8; once per instantiation and device.
+// A function's attributes belong to the device that is current when they
+// are set, so a process that launches on several cards sets them on each.
+constexpr int kMaxDevices = 64;
+
 template <int NP, int LOSS, int THREADS>
 cudaError_t prepare() {
-  static const cudaError_t err = [] {
-    auto kern = pnp_lm_kernel<NP, LOSS, THREADS>;
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)stage_bytes(kStageMax, 1));
-    if (e == cudaSuccess && THREADS != 32)
-      e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    return e;
-  }();
-  return err;
+  static std::atomic<bool> ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (ready[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  auto kern = pnp_lm_kernel<NP, LOSS, THREADS>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)stage_bytes(kStageMax, 1));
+  if (e == cudaSuccess && THREADS != 32)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess) ready[dev].store(true, std::memory_order_release);
+  return e;
 }
 
 cudaLaunchConfig_t config(int blocks, int threads, int cluster, size_t smem,

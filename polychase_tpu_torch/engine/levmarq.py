@@ -127,55 +127,64 @@ def damped_cholesky_solve(JtJ, Jtr, lam):
 
 
 def damped_block_tridiag_solve(JtJ, Jtr, lam, *, nb: int, bs: int):
-    """Banded variant of :func:`damped_cholesky_solve` for one system.
+    """Banded variant of :func:`damped_cholesky_solve`, for one system or
+    a batch of them.
 
     With bundle adjustment's skip pattern an edge couples frames at most
     ``S`` apart, so super-blocks of ``S`` frames make the normal matrix
     block-tridiagonal: ``nb`` diagonal blocks of size ``bs``.  ``JtJ`` is
     the full dense (nb·bs, nb·bs) system, ``Jtr`` (nb·bs,), ``lam`` a float
-    or 0-d tensor; the damping and equilibration are the dense solve's, and
-    zero-padded trailing rows must carry zero ``Jtr``.  The factorization
-    and the two substitutions are loops over the ``nb`` blocks.  Returns
-    ``(step, ok)``, ``ok`` a 0-d bool tensor folding every block's
-    factorization and the step's finiteness; the step is zero where not ok.
+    or 0-d tensor; or, batched, (B, nb·bs, nb·bs), (B, nb·bs) and (B,).
+    The damping and equilibration are the dense solve's, and zero-padded
+    trailing rows must carry zero ``Jtr``.  The factorization and the two
+    substitutions are loops over the ``nb`` blocks, each over the batch.
+    Returns ``(step, ok)``, ``ok`` a bool tensor, 0-d or (B,), folding
+    every block's factorization and the step's finiteness; the step is zero
+    where not ok.
     """
     n = nb * bs
-    if tuple(JtJ.shape) != (n, n):
+    if JtJ.dim() not in (2, 3) or tuple(JtJ.shape[-2:]) != (n, n):
         raise ValueError(f"JtJ is {tuple(JtJ.shape)}, want ({n}, {n})")
-    diag = torch.clamp(torch.diagonal(JtJ), 1e-6, 1e32)
+    batch = tuple(JtJ.shape[:-2])
+    if isinstance(lam, torch.Tensor):
+        lam = lam[..., None]
+    diag = torch.clamp(torch.diagonal(JtJ, dim1=-2, dim2=-1), 1e-6, 1e32)
     damped = diag * (1.0 + lam)
     A = JtJ.clone()
-    A.diagonal().copy_(damped)
+    A.diagonal(dim1=-2, dim2=-1).copy_(damped)
     d = 1.0 / torch.sqrt(damped)
-    As = (A * d[:, None] * d[None, :]).reshape(nb, bs, nb, bs)
-    b = (Jtr * d).reshape(nb, bs)
+    As = (A * d[..., :, None] * d[..., None, :]).reshape(*batch, nb, bs, nb,
+                                                         bs)
+    b = (Jtr * d).reshape(*batch, nb, bs, 1)
 
-    ok = torch.ones((), dtype=torch.bool, device=JtJ.device)
+    ok = torch.ones(batch, dtype=torch.bool, device=JtJ.device)
     Ls, Cts = [], []  # Cts[i] = C_iᵀ with C_i = E_i · L_i^{-T}
-    CCt = torch.zeros((bs, bs), dtype=JtJ.dtype, device=JtJ.device)
+    CCt = torch.zeros((*batch, bs, bs), dtype=JtJ.dtype, device=JtJ.device)
     for i in range(nb):
-        L, info = torch.linalg.cholesky_ex(As[i, :, i, :] - CCt)
-        ok = ok & (info == 0) & torch.isfinite(L).all()
+        L, info = torch.linalg.cholesky_ex(As[..., i, :, i, :] - CCt)
+        ok = ok & (info == 0) & torch.isfinite(L).flatten(-2).all(dim=-1)
         Ls.append(L)
         if i + 1 < nb:
             Ct = torch.linalg.solve_triangular(
-                L, As[i + 1, :, i, :].T, upper=False
+                L, As[..., i + 1, :, i, :].transpose(-1, -2), upper=False
             )
             Cts.append(Ct)
-            CCt = Ct.T @ Ct
+            CCt = Ct.transpose(-1, -2) @ Ct
     ys, y = [], None
     for i in range(nb):
-        r = b[i, :, None] if i == 0 else b[i, :, None] - Cts[i - 1].T @ y
+        r = (b[..., i, :, :] if i == 0
+             else b[..., i, :, :] - Cts[i - 1].transpose(-1, -2) @ y)
         y = torch.linalg.solve_triangular(Ls[i], r, upper=False)
         ys.append(y)
     xs, x = [None] * nb, None
     for i in reversed(range(nb)):
         r = ys[i] if i == nb - 1 else ys[i] - Cts[i] @ x
-        x = torch.linalg.solve_triangular(Ls[i].T, r, upper=True)
+        x = torch.linalg.solve_triangular(Ls[i].transpose(-1, -2), r,
+                                          upper=True)
         xs[i] = x
-    step = -(torch.cat(xs)[:, 0] * d)
-    ok = ok & torch.isfinite(step).all()
-    return torch.where(ok, step, torch.zeros_like(step)), ok
+    step = -(torch.cat(xs, dim=-2)[..., 0] * d)
+    ok = ok & torch.isfinite(step).all(dim=-1)
+    return torch.where(ok[..., None], step, torch.zeros_like(step)), ok
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +223,12 @@ def _normal_equations(problem: LMProblem, opts: BundleOptions, params):
     w = weight * loss_weight(opts.loss_type, opts.loss_scale, r2)
     w = torch.where(valid, w, torch.zeros_like(w))
     JtJ = torch.einsum("snlp,snlq,sn->spq", J, J, w)
-    Jtr = torch.einsum("snlp,snl,sn->sp", J, res, w)
+    # A row-vector product, not an einsum to (S, P): that one sums in
+    # another order for S > 1 than for S = 1 on the CPU, and a solve's
+    # result must not depend on the batch it is in.
+    S, N, L, P = J.shape
+    Jtr = ((res * w[..., None]).reshape(S, 1, N * L)
+           @ J.reshape(S, N * L, P))[:, 0]
     return JtJ, Jtr
 
 

@@ -28,13 +28,20 @@ The prim refresh casts on the device, or through the host BVH of
 the port's ``native`` for meshes of ``BVH_TRIANGLE_THRESHOLD`` triangles
 or more.
 
-Not ported, by design: the device-resident LM chunk program
-(``lm_chunk_device``, ``POLYCHASE_DEVICE_LM``, ``POLYCHASE_LM_CHUNK``), a
-TPU answer to dispatch cost that its tests hold equal to the host driver;
-the fused ``rebuild_and_try_lm_step`` (one jit instead of two; here a plain
-sequence of calls); the ``device_mesh`` path and ``_pad_edges_to`` (the
-multi-device work of a later slice); ``POLYCHASE_BAND_SOLVE``; and the TPU
-padding of K, M and E, which is layout, not semantics.
+:class:`LockstepLM` is the reference's device-resident LM schedule
+(``lm_chunk_device``) with a leading segment axis: S independent segments
+stacked into one problem of S·F frames, each with its own state vector and
+its own accept, reject and exit decisions, one iteration of all of them per
+step.  ``parallel.segments.refine_segments`` runs it.
+
+Not ported, by design: ``POLYCHASE_DEVICE_LM`` and ``POLYCHASE_LM_CHUNK``
+(the reference's chunked replay of that schedule inside
+``refine_trajectory``, a TPU answer to dispatch cost that its tests hold
+equal to the host driver); the fused ``rebuild_and_try_lm_step`` (one jit
+instead of two; here a plain sequence of calls); the ``device_mesh`` path
+and ``_pad_edges_to`` (the sharded normal equations of a later slice);
+``POLYCHASE_BAND_SOLVE``; and the TPU padding of K, M and E, which is
+layout, not semantics.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ from torch.profiler import record_function
 
 from ..io.database import Database
 
-from ..backend import as_device
+from ..backend import HostCopy, as_device, current
 from . import camera as C
 from . import pose as P
 from .geometry import Mesh
@@ -125,8 +132,8 @@ class RefinerData:
     edge_weight: torch.Tensor  # (E,)
     edge_valid: torch.Tensor   # (E,) bool
     anchor: torch.Tensor       # (F,) bool, ground-truth frames
-    aspect: torch.Tensor       # () aspect ratio (shared)
-    conv_sign: torch.Tensor    # () +1 OpenCV / -1 OpenGL
+    aspect: torch.Tensor       # () aspect ratio, or (F,) in a stack
+    conv_sign: torch.Tensor    # () +1 OpenCV / -1 OpenGL, or (F,)
 
 
 _STATE_FIELDS = {
@@ -293,11 +300,15 @@ def _frame_intrinsics(params: TrajParams, data: RefinerData,
     """Intrinsics gathered for frame indices ``idx``; width and height are
     unused by projection and left zero."""
     zeros = torch.zeros_like(params.fx[idx])
+
+    def shared(v):  # one value for the segment, or one per stacked frame
+        return v[idx] if v.dim() else v + zeros
+
     return C.Intrinsics(
         fx=params.fx[idx], fy=params.fy[idx],
         cx=params.cx[idx], cy=params.cy[idx],
-        aspect_ratio=data.aspect + zeros, width=zeros, height=zeros,
-        sign=data.conv_sign + zeros,
+        aspect_ratio=shared(data.aspect), width=zeros, height=zeros,
+        sign=shared(data.conv_sign),
     )
 
 
@@ -488,21 +499,64 @@ def _edge_eval(params: TrajParams, data: RefinerData, prims: torch.Tensor,
     return res, valid, J_src, J_tgt
 
 
+def _edge_costs(params, data: RefinerData, prims, tri_corners, model,
+                model_inv, loss_scale, loss_type: int) -> torch.Tensor:
+    """Each edge's weighted, per-edge-normalised robust cost, (E,)."""
+    res, valid, _, _ = _edge_eval(
+        params, data, prims, tri_corners, model, model_inv,
+        with_jac=False, opt_f=False, opt_pp=False,
+    )
+    r2 = torch.sum(res * res, dim=-1)
+    cost_m = torch.where(valid, loss_value(loss_type, loss_scale, r2), 0.0)
+    n_valid = torch.clamp(valid.sum(dim=-1), min=1)
+    edge_cost = cost_m.sum(dim=-1) / n_valid
+    return torch.where(data.edge_valid, data.edge_weight * edge_cost, 0.0)
+
+
 def total_cost(params, data: RefinerData, prims, tri_corners, model,
                model_inv, loss_scale, *, loss_type: int) -> torch.Tensor:
     """The per-edge-normalised robust cost, a 0-d tensor."""
     with record_function("refine.cost"):
-        res, valid, _, _ = _edge_eval(
-            params, data, prims, tri_corners, model, model_inv,
-            with_jac=False, opt_f=False, opt_pp=False,
-        )
-        r2 = torch.sum(res * res, dim=-1)
-        cost_m = torch.where(valid, loss_value(loss_type, loss_scale, r2),
-                             0.0)
-        n_valid = torch.clamp(valid.sum(dim=-1), min=1)
-        edge_cost = cost_m.sum(dim=-1) / n_valid
-        return torch.where(data.edge_valid, data.edge_weight * edge_cost,
-                           0.0).sum()
+        return _edge_costs(params, data, prims, tri_corners, model,
+                           model_inv, loss_scale, loss_type).sum()
+
+
+def segment_costs(params, data: RefinerData, prims, tri_corners, model,
+                  model_inv, loss_scale, *, loss_type: int,
+                  S: int) -> torch.Tensor:
+    """:func:`total_cost` of each segment of a stack of S, (S,); each
+    segment owns a contiguous run of the stack's edges."""
+    with record_function("refine.cost"):
+        return _edge_costs(params, data, prims, tri_corners, model,
+                           model_inv, loss_scale, loss_type).reshape(
+                               S, -1).sum(dim=1)
+
+
+def _pair_systems(params, data: RefinerData, prims, tri_corners, model,
+                  model_inv, loss_scale, loss_type: int, opt_f: bool,
+                  opt_pp: bool, ppc: int):
+    """Each edge's contribution to the normal equations: JᵀJ (E, 2·ppc,
+    2·ppc) and Jᵀr (E, 2·ppc) over its source and target cameras, and the
+    rows of the frame-major parameter vector they land on, (E, 2·ppc)."""
+    res, valid, J_src, J_tgt = _edge_eval(
+        params, data, prims, tri_corners, model, model_inv,
+        with_jac=True, opt_f=opt_f, opt_pp=opt_pp,
+    )
+    E, M = valid.shape
+    r2 = torch.sum(res * res, dim=-1)
+    w = torch.where(valid, loss_weight(loss_type, loss_scale, r2), 0.0)
+
+    n2 = 2 * ppc
+    J_pair = torch.cat([J_src[..., :ppc], J_tgt[..., :ppc]], dim=-1)
+    Jw = (J_pair * w[:, :, None, None]).reshape(E, M * 2, n2)
+    JtJ_pair = Jw.transpose(1, 2) @ J_pair.reshape(E, M * 2, n2)
+    Jtr_pair = torch.einsum("eki,ek->ei", Jw, res.reshape(E, M * 2))
+    n_valid = torch.clamp(valid.sum(dim=-1), min=1).to(torch.float32)
+    scale = torch.where(data.edge_valid, data.edge_weight / n_valid, 0.0)
+    off = torch.arange(ppc, device=res.device)
+    rows = torch.cat([data.src_frame[:, None] * ppc + off,
+                      data.tgt_frame[:, None] * ppc + off], dim=1)
+    return JtJ_pair * scale[:, None, None], Jtr_pair * scale[:, None], rows
 
 
 def build_normal_equations(params, data: RefinerData, prims, tri_corners,
@@ -510,39 +564,47 @@ def build_normal_equations(params, data: RefinerData, prims, tri_corners,
                            opt_f: bool, opt_pp: bool, ppc: int):
     """Dense JᵀJ (P, P) and Jᵀr (P,) over all edges, P = F·ppc."""
     with record_function("refine.normal_equations"):
-        res, valid, J_src, J_tgt = _edge_eval(
-            params, data, prims, tri_corners, model, model_inv,
-            with_jac=True, opt_f=opt_f, opt_pp=opt_pp,
-        )
-        F = params.q.shape[0]
-        E, M = valid.shape
-        r2 = torch.sum(res * res, dim=-1)
-        w = torch.where(valid, loss_weight(loss_type, loss_scale, r2), 0.0)
-
-        n2 = 2 * ppc
-        J_pair = torch.cat([J_src[..., :ppc], J_tgt[..., :ppc]], dim=-1)
-        Jw = (J_pair * w[:, :, None, None]).reshape(E, M * 2, n2)
-        JtJ_pair = Jw.transpose(1, 2) @ J_pair.reshape(E, M * 2, n2)
-        Jtr_pair = torch.einsum("eki,ek->ei", Jw, res.reshape(E, M * 2))
-        n_valid = torch.clamp(valid.sum(dim=-1), min=1).to(torch.float32)
-        scale = torch.where(data.edge_valid, data.edge_weight / n_valid, 0.0)
-        JtJ_pair = JtJ_pair * scale[:, None, None]
-        Jtr_pair = Jtr_pair * scale[:, None]
-
+        JtJ_pair, Jtr_pair, rows = _pair_systems(
+            params, data, prims, tri_corners, model, model_inv, loss_scale,
+            loss_type, opt_f, opt_pp, ppc)
+        E, n2 = rows.shape
+        Pn = params.q.shape[0] * ppc
         # Scatter-add into the dense (F·ppc)² system.
-        off = torch.arange(ppc, device=res.device)
-        rows = torch.cat([data.src_frame[:, None] * ppc + off,
-                          data.tgt_frame[:, None] * ppc + off], dim=1)
-        Pn = F * ppc
-        JtJ = torch.zeros((Pn, Pn), dtype=torch.float32, device=res.device)
+        JtJ = torch.zeros((Pn, Pn), dtype=torch.float32, device=rows.device)
         JtJ.index_put_(
             (rows[:, :, None].expand(E, n2, n2),
              rows[:, None, :].expand(E, n2, n2)),
             JtJ_pair, accumulate=True,
         )
-        Jtr = torch.zeros((Pn,), dtype=torch.float32, device=res.device)
+        Jtr = torch.zeros((Pn,), dtype=torch.float32, device=rows.device)
         Jtr.index_put_((rows,), Jtr_pair, accumulate=True)
         return JtJ, Jtr
+
+
+def segment_normal_equations(params, data: RefinerData, prims, tri_corners,
+                             model, model_inv, loss_scale, *, loss_type: int,
+                             opt_f: bool, opt_pp: bool, ppc: int, S: int):
+    """:func:`build_normal_equations` of each segment of a stack of S:
+    JᵀJ (S, P, P) and Jᵀr (S, P), P = F·ppc of one segment."""
+    with record_function("refine.normal_equations"):
+        JtJ_pair, Jtr_pair, rows = _pair_systems(
+            params, data, prims, tri_corners, model, model_inv, loss_scale,
+            loss_type, opt_f, opt_pp, ppc)
+        E, n2 = rows.shape
+        P = params.q.shape[0] // S * ppc
+        # A stacked row s·P + r is row r of segment s's system.
+        seg = torch.arange(E, device=rows.device) // (E // S)
+        local = rows - (seg * P)[:, None]
+        flat = ((seg * P * P)[:, None, None] + local[:, :, None] * P
+                + local[:, None, :])
+        JtJ = torch.zeros((S * P * P,), dtype=torch.float32,
+                          device=rows.device)
+        JtJ.index_put_((flat.reshape(-1),), JtJ_pair.reshape(-1),
+                       accumulate=True)
+        Jtr = torch.zeros((S * P,), dtype=torch.float32, device=rows.device)
+        Jtr.index_put_((rows.reshape(-1),), Jtr_pair.reshape(-1),
+                       accumulate=True)
+        return JtJ.reshape(S, P, P), Jtr.reshape(S, P)
 
 
 def solve_step(JtJ, Jtr, lam: float, band: tuple):
@@ -618,6 +680,176 @@ def compute_band(data: RefinerData, F: int, ppc: int) -> tuple:
     if nb < 6:
         return ()
     return (nb, span * ppc)
+
+
+# ---------------------------------------------------------------------------
+# Lockstep LM over a stack of segments
+# ---------------------------------------------------------------------------
+
+# Columns of a segment's state vector (the reference's ``scal``).
+COST, LAM, V, REBUILD, DONE, INVALID, ITERS, BUDGET = range(8)
+
+
+class LockstepLM:
+    """The reference's device-resident LM schedule (``lm_chunk_device``,
+    ``polychase_tpu/engine/refiner.py:868-1002``) on a stack of S segments.
+
+    ``params`` and ``data`` hold S segments of F frames each, frame-major
+    (frame f of segment s at s·F + f, every edge of segment s among edges
+    [s·E, (s+1)·E) and indexing its own frames); ``prims`` (S·F, K) are
+    their cached hits; ``scal`` (S, 8) is each segment's state [cost, λ, v,
+    rebuild, done, invalid steps, counted iterations, budget]; ``bounds``
+    holds one value per stacked frame; ``tol`` = (gradient_tol, step_tol,
+    min_lambda, max_lambda, function_tol), ``function_tol`` 0 disabling the
+    stagnation exit.  A segment's iteration follows the reference rule by
+    rule: the normal equations are rebuilt where ``rebuild`` is set, the
+    gradient exit is tested only then; an invalid solve, the step exit, an
+    improved or a rejected step, the λ exit; ρ and the Nielsen factor;
+    stagnation on an improved or rejected step; the budget of counted
+    iterations; the prims refreshed after an improved step.  A done
+    segment keeps its state.  Each iteration runs for every live segment,
+    as the reference's ``vmap`` of its ``cond`` does, and is decided on the
+    device; :meth:`iterate` only skips the rebuild when no live segment
+    needs one.
+    """
+
+    def __init__(self, params: TrajParams, prims, scal, data: RefinerData,
+                 mesh: Mesh, model, model_inv, tri_corners,
+                 loss_scale: float, bounds: C.Bounds, tol, *,
+                 loss_type: int, opt_f: bool, opt_pp: bool, ppc: int,
+                 band: tuple = ()):
+        self.params, self.prims, self.scal = params, prims, scal
+        self.S = int(scal.shape[0])
+        self.F = int(params.q.shape[0]) // self.S
+        P = self.F * ppc
+        f32 = dict(dtype=torch.float32, device=scal.device)
+        self.JtJ = torch.zeros((self.S, P, P), **f32)
+        self.Jtr = torch.zeros((self.S, P), **f32)
+        self.data, self.mesh, self.bounds, self.band = data, mesh, bounds, band
+        self.geom = (tri_corners, model, model_inv, loss_scale)
+        self.model_inv = model_inv
+        self.tol = tuple(float(t) for t in tol)
+        self.kw = dict(loss_type=loss_type, opt_f=opt_f, opt_pp=opt_pp,
+                       ppc=ppc)
+
+    def _solve(self):
+        lam = self.scal[:, LAM]
+        if not self.band:
+            return damped_cholesky_solve(self.JtJ, self.Jtr, lam)
+        nb, bs = self.band
+        P, n = self.JtJ.shape[1], nb * bs
+        JtJ = self.JtJ.new_zeros((self.S, n, n))
+        JtJ[:, :P, :P] = self.JtJ
+        Jtr = self.Jtr.new_zeros((self.S, n))
+        Jtr[:, :P] = self.Jtr
+        step, ok = damped_block_tridiag_solve(JtJ, Jtr, lam, nb=nb, bs=bs)
+        return step[:, :P], ok
+
+    def iterate(self, scal_h: np.ndarray) -> None:
+        """One LM iteration of every live segment.  ``scal_h`` is the host
+        copy of ``scal`` at this point; it is read only to skip the rebuild
+        when no live segment needs one."""
+        S, F, kw = self.S, self.F, self.kw
+        gtol, step_tol, min_lam, max_lam, ftol = self.tol
+        data, params, prims = self.data, self.params, self.prims
+        sc = self.scal
+        cost, lam, v = sc[:, COST], sc[:, LAM], sc[:, V]
+        rebuild, live = sc[:, REBUILD] > 0, sc[:, DONE] <= 0
+        if ((scal_h[:, DONE] <= 0) & (scal_h[:, REBUILD] > 0)).any():
+            JtJ, Jtr = segment_normal_equations(
+                params, data, prims, *self.geom, S=S, **kw)
+            sel = rebuild & live
+            self.JtJ = torch.where(sel[:, None, None], JtJ, self.JtJ)
+            self.Jtr = torch.where(sel[:, None], Jtr, self.Jtr)
+        JtJ, Jtr = self.JtJ, self.Jtr
+        with record_function("refine.solve"):
+            step, ok = self._solve()
+        with record_function("refine.step"):
+            step_norm = torch.linalg.vector_norm(step, dim=1)
+            grad_norm = torch.linalg.vector_norm(Jtr, dim=1)
+            params_new = apply_step(params, data, step.reshape(-1),
+                                    self.bounds, opt_f=kw["opt_f"],
+                                    opt_pp=kw["opt_pp"], ppc=kw["ppc"])
+            expected = (step * (2.0 * Jtr
+                                + (JtJ @ step[:, :, None])[:, :, 0])).sum(1)
+        cost_new = segment_costs(params_new, data, prims, *self.geom, S=S,
+                                 loss_type=kw["loss_type"])
+
+        grad_break = rebuild & (grad_norm < gtol)
+        invalid = ~ok & ~grad_break
+        stepped = ~grad_break & ~invalid
+        step_break = stepped & (step_norm < step_tol)
+        improved = stepped & ~step_break & (cost_new < cost)
+        reject = stepped & ~step_break & ~improved
+        bad = invalid | reject
+        lam_break = bad & (lam >= max_lam)
+        rho = torch.where(expected != 0.0, (cost_new - cost) / expected,
+                          torch.full_like(cost, -1.0))
+        factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+        lam_accept = torch.where(
+            rho > 0.0, torch.clamp(lam * factor, min_lam, max_lam), lam)
+        lam_bad = torch.clamp(lam * v, max=max_lam)
+        bad_cont = bad & ~lam_break
+
+        # The prim refresh after an improved step, for every segment, kept
+        # where the step improved.
+        prims_new = refresh_prims(params_new, data, self.mesh,
+                                  self.model_inv)
+        cost_ref = segment_costs(params_new, data, prims_new, *self.geom,
+                                 S=S, loss_type=kw["loss_type"])
+        take = live & improved
+        take_f = take.repeat_interleave(F)
+        self.params = TrajParams(*(
+            torch.where(take_f.reshape(-1, *[1] * (a.dim() - 1)), a, b)
+            for a, b in zip(_fields(params_new), _fields(params))))
+        self.prims = torch.where(take_f[:, None], prims_new, prims)
+
+        counted = improved | ((reject | invalid) & ~lam_break)
+        iters = sc[:, ITERS] + counted.to(torch.float32)
+        stagnated = (torch.abs(cost_new - cost) <= ftol * cost if ftol > 0.0
+                     else torch.zeros_like(live))
+        done = (grad_break | step_break | lam_break
+                | ((improved | reject) & stagnated) | (iters >= sc[:, BUDGET]))
+        two = torch.full_like(v, 2.0)
+        out = torch.stack([
+            torch.where(improved, cost_ref, cost),
+            torch.where(improved, lam_accept,
+                        torch.where(bad_cont, lam_bad, lam)),
+            torch.where(improved, two, torch.where(bad_cont, v * 2.0, v)),
+            torch.where(improved, torch.ones_like(v),
+                        torch.where(bad_cont, torch.zeros_like(v),
+                                    sc[:, REBUILD])),
+            done.to(torch.float32),
+            sc[:, INVALID] + bad.to(torch.float32),
+            iters,
+            sc[:, BUDGET],
+        ], dim=1)
+        self.scal = torch.where(live[:, None], out, sc)
+
+
+def _fields(p: TrajParams):
+    return (p.q, p.t, p.fx, p.fy, p.cx, p.cy)
+
+
+def run_lockstep(lms, n_iters: int) -> None:
+    """Up to ``n_iters`` iterations of each :class:`LockstepLM` in ``lms``
+    (one per device), interleaved so that the devices work together.  Each
+    iteration reads each stack's state vector once, and a stack whose
+    segments are all done stops; its results are then those of the full
+    ``n_iters``."""
+    live = list(lms)
+    for _ in range(n_iters):
+        reads = [(lm, HostCopy(lm.scal)) for lm in live]
+        live = []
+        for lm, read in reads:
+            (scal_h,) = read.numpy()
+            if (scal_h[:, DONE] > 0).all():
+                continue
+            with current(lm.scal.device):
+                lm.iterate(scal_h)
+            live.append(lm)
+        if not live:
+            break
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,9 @@ frames on one stream, with the carry ``(q_all, t_all, in_all)`` on the
 device and the ``count >= 3`` fallback a ``torch.where``.  Results come to
 the host once per ``FLUSH_FRAMES`` frames, for the callback and the
 trajectory, with the reference's streaming and cancel semantics.  One path
-serves every segment length.
+serves every segment length.  The frame step (``_cast_and_solve``) has a
+leading segment axis: the sequential chain steps one segment,
+``parallel.tracking`` steps S of them with one ray cast and one PnP launch.
 """
 
 from __future__ import annotations
@@ -88,55 +90,104 @@ def unproject_np(intrinsics: C.Intrinsics, pixels: np.ndarray) -> np.ndarray:
 
 
 def _cast_and_solve(mesh, model, model_inv, carry, const5, kps_all, src_idx,
-                    kp_idx, cnt, tgt, tgt_i: int, warm_i: int, opt_f, opt_pp,
-                    opts):
-    """One frame on the device: rays from the carried source cameras, the
-    ray cast, the PnP solve, and the carry update (in place).  Returns the
-    19-float result and the correspondence count, both on the device."""
+                    kp_idx, cnt, tgt, tgt_i, warm_i, opt_f, opt_pp, opts):
+    """One frame step of S chains on the device: rays from the carried
+    source cameras, one ray cast of all S·G groups, one batched PnP solve
+    (S solves of G·K points), and the carry update (in place) where a
+    solve had at least 3 correspondences.
+
+    ``carry`` is (q (S, F, 4), t (S, F, 3), intrinsics (S, F, 4)),
+    ``kps_all`` (S, F, Kmax, 2); ``src_idx``, ``cnt`` (S, G), ``kp_idx``
+    (S, G, K), ``tgt`` (S, G, K, 2); ``tgt_i`` and ``warm_i`` (S,).
+    Returns the (S, 19) results and the (S,) correspondence counts, both
+    on the device."""
     q_all, t_all, in_all = carry
-    kp = kps_all[src_idx[:, None], kp_idx]                 # (G, K, 2)
-    K = kp_idx.shape[1]
-    val = torch.arange(K, device=kp.device)[None, :] < cnt[:, None]
-    qs, ts, ins = q_all[src_idx], t_all[src_idx], in_all[src_idx]
+    S, G, K = kp_idx.shape
+    s_idx = torch.arange(S, device=kp_idx.device)
+    kp = kps_all[s_idx[:, None, None], src_idx[:, :, None], kp_idx]
+    val = torch.arange(K, device=kp.device) < cnt[:, :, None]
+    qs = q_all[s_idx[:, None], src_idx].reshape(S * G, 4)
+    ts = t_all[s_idx[:, None], src_idx].reshape(S * G, 3)
+    ins = in_all[s_idx[:, None], src_idx].reshape(S * G, 4)
     intr_b = C.Intrinsics(
         fx=ins[:, 0, None], fy=ins[:, 1, None], cx=ins[:, 2, None],
         cy=ins[:, 3, None], aspect_ratio=const5[0], width=const5[1],
         height=const5[2], sign=const5[3],
     )
-    dir_cam = C.unproject(intr_b, kp)                      # (G, K, 3)
+    dir_cam = C.unproject(intr_b, kp.reshape(S * G, K, 2))  # (S·G, K, 3)
     dir_w = P.quat_rotate(P.quat_conj(qs)[:, None, :], dir_cam)
-    origin_w = P.pose_center(P.Pose(qs, ts))               # (G, 3)
+    origin_w = P.pose_center(P.Pose(qs, ts))               # (S·G, 3)
     origin_o = origin_w @ model_inv[:3, :3].T + model_inv[:3, 3]
     dir_o = dir_w @ model_inv[:3, :3].T
 
     hits = raycast_grouped(mesh, origin_o, dir_o, True)
-    m = (hits.valid & val).reshape(-1)
-    X = hits.pos.reshape(-1, 3) @ model[:3, :3].T + model[:3, 3]
+    m = (hits.valid & val.reshape(S * G, K)).reshape(S, G * K)
+    X = hits.pos.reshape(S, G * K, 3) @ model[:3, :3].T + model[:3, 3]
     weights = m.to(torch.float32)
     params = torch.cat(
-        [q_all[warm_i], t_all[warm_i], in_all[warm_i], const5]
+        [q_all[s_idx, warm_i], t_all[s_idx, warm_i], in_all[s_idx, warm_i],
+         const5.expand(S, 5)], dim=1,
     )  # the 16-float solve_arrays layout
     vec = solve_arrays_lm(
-        X[None], tgt.reshape(-1, 2)[None], weights[None], m[None],
-        params[None], opt_f=opt_f, opt_pp=opt_pp, opts=opts,
-    )[0]
-    count = m.sum()
-    ok = count >= 3
-    q_all[tgt_i] = torch.where(ok, vec[0:4], q_all[tgt_i])
-    t_all[tgt_i] = torch.where(ok, vec[4:7], t_all[tgt_i])
-    in_all[tgt_i] = torch.where(ok, vec[7:11], in_all[tgt_i])
+        X, tgt.reshape(S, G * K, 2), weights, m, params,
+        opt_f=opt_f, opt_pp=opt_pp, opts=opts,
+    )
+    count = m.sum(dim=1)
+    ok = (count >= 3)[:, None]
+    q_all[s_idx, tgt_i] = torch.where(ok, vec[:, 0:4], q_all[s_idx, tgt_i])
+    t_all[s_idx, tgt_i] = torch.where(ok, vec[:, 4:7], t_all[s_idx, tgt_i])
+    in_all[s_idx, tgt_i] = torch.where(ok, vec[:, 7:11],
+                                       in_all[s_idx, tgt_i])
     return vec, count
 
 
+def _check_flow_indices(plan, kps) -> None:
+    """The device gather does not check its indices: check the DB's."""
+    for _, _, gs in plan:
+        for src_f, idx, _ in gs:
+            if int(idx.max()) >= kps.get(src_f, np.empty((0, 2))).shape[0]:
+                raise TrackingError(
+                    f"flow from frame {src_f} indexes past its keypoints"
+                )
+
+
+def pack_steps(plan, first: int, G: int, K: int, dev):
+    """The per-step inputs of one chain's ``plan`` (``_plan``'s rows), padded
+    to G groups of K keypoints, on ``dev``: ``src_idx``, ``cnt`` (T, G),
+    ``kp_idx`` (T, G, K), ``tgt`` (T, G, K, 2), ``tgt_i`` and ``warm_i``
+    (T,), frames counted from ``first``."""
+    T = len(plan)
+    src_idx = np.zeros((T, G), np.int64)
+    kp_idx = np.zeros((T, G, K), np.int64)
+    cnt = np.zeros((T, G), np.int64)
+    tgt = np.zeros((T, G, K, 2), np.float32)
+    tgt_i = np.zeros((T,), np.int64)
+    warm_i = np.zeros((T,), np.int64)
+    for r, (frame_id, warm, groups) in enumerate(plan):
+        tgt_i[r], warm_i[r] = frame_id - first, warm - first
+        for g, (src_f, idx, tpx) in enumerate(groups):
+            n = idx.shape[0]
+            src_idx[r, g] = src_f - first
+            kp_idx[r, g, :n] = idx
+            cnt[r, g] = n
+            tgt[r, g, :n] = tpx
+    return tuple(torch.as_tensor(a, device=dev) for a in (
+        src_idx, kp_idx, cnt, tgt, tgt_i, warm_i))
+
+
 def _plan(database: Database, camera_traj: CameraTrajectory, frames,
-          direction: int):
+          direction: int, available=None):
     """Host half of the gather: for each frame, its warm-start frame and
-    the flows into it from frames that will be solved by then."""
+    the flows into it from frames that will be solved by then.  Those are
+    the frames in ``available`` (by default every filled frame of the
+    trajectory) and the frames solved before it."""
     first = camera_traj.first_frame
-    available = {
-        fid for fid in range(first, first + camera_traj.count)
-        if camera_traj.is_frame_filled(fid)
-    }
+    if available is None:
+        available = {
+            fid for fid in range(first, first + camera_traj.count)
+            if camera_traj.is_frame_filled(fid)
+        }
+    available = set(available)
     flows_by_tgt = database.read_flows_to_image_range(
         first, first + camera_traj.count - 1
     )
@@ -189,7 +240,7 @@ def _track_chain(database, camera_traj, frames, direction, model_matrix,
             it = state.intrinsics
             in0[i] = [float(it.fx), float(it.fy), float(it.cx), float(it.cy)]
     dev = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-    carry = (dev(q0), dev(t0), dev(in0))
+    carry = (dev(q0[None]), dev(t0[None]), dev(in0[None]))
 
     # One padded shape for the run: G groups of K keypoints per frame.
     G = max([len(gs) for _, _, gs in plan] + [1])
@@ -203,17 +254,11 @@ def _track_chain(database, camera_traj, frames, direction, model_matrix,
     )
     Kmax = max([kps.get(f, np.empty((0, 2))).shape[0] for f in src_frames]
                + [1])
-    kps_all = np.zeros((F, Kmax, 2), np.float32)
+    kps_all = np.zeros((1, F, Kmax, 2), np.float32)
     for f in src_frames:
         k = kps.get(f, np.empty((0, 2), np.float32))
-        kps_all[f - first, : k.shape[0]] = k
-    # The device gather does not check its indices: check the DB's here.
-    for _, _, gs in plan:
-        for src_f, idx, _ in gs:
-            if int(idx.max()) >= kps.get(src_f, np.empty((0, 2))).shape[0]:
-                raise TrackingError(
-                    f"flow from frame {src_f} indexes past its keypoints"
-                )
+        kps_all[0, f - first, : k.shape[0]] = k
+    _check_flow_indices(plan, kps)
     kps_all = dev(kps_all)
 
     model = dev(np.asarray(_host(model_matrix), np.float32))
@@ -223,36 +268,20 @@ def _track_chain(database, camera_traj, frames, direction, model_matrix,
         )
     )
 
-    def pack(chunk):
-        """Exact-f32 per-chunk inputs, uploaded once per chunk."""
-        CH = len(chunk)
-        src_idx = np.zeros((CH, G), np.int64)
-        kp_idx = np.zeros((CH, G, K), np.int64)
-        cnt = np.zeros((CH, G), np.int64)
-        tgt = np.zeros((CH, G, K, 2), np.float32)
-        for r, (_, _, groups) in enumerate(chunk):
-            for g, (src_f, idx, tpx) in enumerate(groups):
-                n = idx.shape[0]
-                src_idx[r, g] = src_f - first
-                kp_idx[r, g, :n] = idx
-                cnt[r, g] = n
-                tgt[r, g, :n] = tpx
-        return dev(src_idx), dev(kp_idx), dev(cnt), dev(tgt)
-
     for c0 in range(0, len(plan), FLUSH_FRAMES):
         chunk = plan[c0:c0 + FLUSH_FRAMES]
-        src_idx, kp_idx, cnt, tgt = pack(chunk)
+        # Exact-f32 per-chunk inputs, uploaded once per chunk.
+        steps = pack_steps(chunk, first, G, K, device)
         vecs, counts = [], []
-        for r, (frame_id, warm, _) in enumerate(chunk):
+        for r in range(len(chunk)):
             vec, count = _cast_and_solve(
-                mesh, model, model_inv, carry, const5, kps_all, src_idx[r],
-                kp_idx[r], cnt[r], tgt[r], frame_id - first, warm - first,
-                opt_f, opt_pp, opts,
+                mesh, model, model_inv, carry, const5, kps_all,
+                *(a[r:r + 1] for a in steps), opt_f, opt_pp, opts,
             )
             vecs.append(vec)
             counts.append(count)
-        vecs_h = torch.stack(vecs).cpu().numpy()
-        counts_h = torch.stack(counts).cpu().numpy()
+        vecs_h = torch.cat(vecs).cpu().numpy()
+        counts_h = torch.cat(counts).cpu().numpy()
 
         for r, (frame_id, _, _) in enumerate(chunk):
             vec, count = vecs_h[r], int(counts_h[r])

@@ -2,9 +2,11 @@
 
 Importing this module gives the surface of the reference's pybind11
 extension (cpp/polychase_pybind.cc): all value/option classes, the three
-worker threads with their message types, and the five free functions.
-Each function and thread takes a keyword-only ``device``, the card when
-left out.  The Blender addon can alias it::
+worker threads with their message types and the five free functions, and
+the reference's extensions (``device_count``, ``refine_segments``,
+``track_segments``, ``RefineSegmentsThread``).  Each function and thread
+takes a keyword-only ``device``, the card when left out (every card for the
+segment-parallel ones).  The Blender addon can alias it::
 
     import polychase_tpu_torch.polychase_core as polychase_core
 """
@@ -16,6 +18,7 @@ from .runtime.threads import (  # noqa: F401
     OpticalFlowRequest,
     OpticalFlowThread,
     RefinerThread,
+    RefineSegmentsThread,
     TrackerThread,
 )
 
@@ -24,5 +27,6 @@ __all__ = list(_api_all) + [
     "OpticalFlowRequest",
     "OpticalFlowThread",
     "RefinerThread",
+    "RefineSegmentsThread",
     "TrackerThread",
 ]

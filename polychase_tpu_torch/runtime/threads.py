@@ -15,13 +15,16 @@ Message protocols (what ``try_pop`` yields) mirror the reference's
   (cpp/tracker_thread.h:16-17)
 - ``RefinerThread``: RefineTrajectoryUpdate | bool | Exception
   (cpp/refiner_thread.h:15-16)
+- ``RefineSegmentsThread`` (an extension): one RefineTrajectoryUpdate,
+  then bool | Exception
 
 A worker that fails puts its exception on the queue, then ``True``.
 
 Each constructor takes a trailing keyword-only ``device``; ``None`` means
-the card.  It is resolved on the caller's thread, to an indexed device (a
-fresh thread's current CUDA device is 0), and the worker runs with that
-device current.  Without a card the worker's first message is the
+the card (every visible card for ``RefineSegmentsThread``).  It is
+resolved on the caller's thread, to an indexed device (a fresh thread's
+current CUDA device is 0), and the worker runs with that device (the
+first of them) current.  Without a card the worker's first message is the
 :class:`~polychase_tpu_torch.api.CppException`, then ``True``.
 
 ``OpticalFlowThread`` requests frames from the UI thread: it pushes an
@@ -35,16 +38,14 @@ asks the ring for each frame once, in order.
 
 from __future__ import annotations
 
-import contextlib
 import queue
 import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
-import torch
 
 from .. import api
-from ..backend import surface_device
+from ..backend import current, surface_device, surface_devices
 from ..engine.opticalflow import FrameNotProvidedError as _FrameNotProvidedError
 
 
@@ -58,7 +59,9 @@ class OpticalFlowRequest(NamedTuple):
 
 
 class _WorkerBase:
-    """Common queue/thread plumbing shared by all three workers."""
+    """Common queue/thread plumbing shared by all four workers."""
+
+    _resolve = staticmethod(surface_device)
 
     def __init__(self, device):
         self._queue: "queue.Queue" = queue.Queue()
@@ -66,7 +69,7 @@ class _WorkerBase:
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._device_error: Optional[Exception] = None
         try:
-            self._device = surface_device(device)
+            self._device = self._resolve(device)
         except RuntimeError as exc:
             self._device = None
             self._device_error = api.CppException(str(exc))
@@ -78,9 +81,9 @@ class _WorkerBase:
         try:
             if self._device_error is not None:
                 raise self._device_error
-            with (torch.cuda.device(self._device)
-                  if self._device.type == "cuda"
-                  else contextlib.nullcontext()):
+            first = (self._device[0] if isinstance(self._device, list)
+                     else self._device)
+            with current(first):
                 self._work()
         except Exception as exc:  # marshalled like the C++ exception ptr
             self._queue.put(exc)
@@ -301,5 +304,52 @@ class RefinerThread(_WorkerBase):
          bundle_opts) = self._args
         api.refine_trajectory(
             database_path, traj, model_matrix, mesh, opt_f, opt_pp, cb,
+            bundle_opts, device=self._device,
+        )
+
+
+class RefineSegmentsThread(_WorkerBase):
+    """Extension worker: refine many independent segments together
+    (``api.refine_segments``), the segments split over the devices.
+
+    Messages: one ``RefineTrajectoryUpdate`` (progress 0) then ``True``.
+    Every trajectory is refined in place; read them after the done
+    message.  A stop is coarse: the run goes to its end regardless, and a
+    caller checks ``stopped`` on the done message and skips the results
+    (the addon's refine-all does).
+    """
+
+    _resolve = staticmethod(surface_devices)
+
+    def __init__(
+        self,
+        database_path: str,
+        camera_trajectories,
+        model_matrix,
+        mesh: "api.AcceleratedMesh",
+        optimize_focal_length: bool,
+        optimize_principal_point: bool,
+        bundle_opts: "api.BundleOptions",
+        *,
+        device=None,
+    ):
+        super().__init__(device)
+        self._args = (
+            database_path, camera_trajectories, model_matrix, mesh,
+            optimize_focal_length, optimize_principal_point, bundle_opts,
+        )
+        self._start()
+
+    def _work(self):
+        (database_path, trajs, model_matrix, mesh, opt_f, opt_pp,
+         bundle_opts) = self._args
+        self._queue.put(
+            api.RefineTrajectoryUpdate(
+                progress=0.0,
+                message=f"Refining {len(trajs)} segments in parallel",
+            )
+        )
+        api.refine_segments(
+            database_path, trajs, model_matrix, mesh, opt_f, opt_pp,
             bundle_opts, device=self._device,
         )

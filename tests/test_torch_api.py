@@ -14,6 +14,10 @@
   (``tests/pin_route_scan.py``).
 - Without a card, every free function called with no ``device`` raises
   ``CppException``, and nothing runs on the CPU.
+- The extensions: the facade's ``__all__`` equals the JAX package's,
+  ``device_count()`` is 0 without a card, and ``track_segments`` /
+  ``refine_segments`` with ``device="cpu"`` give the engine calls'
+  results within 1e-6 (the same computation, so in fact to the bit).
 """
 
 import numpy as np
@@ -354,6 +358,145 @@ def test_free_functions_refuse_without_card(tmp_path, monkeypatch):
     }
     assert set(calls) == set(FUNCTIONS)
     for name, call in calls.items():
+        with pytest.raises(pc.CppException, match="no CUDA device"):
+            call()
+    assert ran == []
+
+
+# ---------------------------------------------------------------------------
+# The extensions: device_count and the segment-parallel paths
+# ---------------------------------------------------------------------------
+
+SEG_ATOL = 1e-6
+SEG_FRAMES, SEG_BOUNDS = 18, ((0, 5), (6, 11), (12, 17))
+
+
+def segment_scene(db_path, seed=4):
+    """A jax-free 18-frame orbit of a 12×16 sphere at 640×480, f = 600,
+    with 96 keypoints a frame and 0.2 px flow noise, written to
+    ``db_path``; returns the facade mesh's arrays, the poses and the
+    intrinsics."""
+    from polychase_tpu_torch.engine.geometry import Mesh as TMesh
+    from polychase_tpu_torch.synthetic import build_flow_db
+
+    v, t = uv_sphere(12, 16)
+    poses = orbit_poses(SEG_FRAMES)
+    build_flow_db(db_path, TMesh.create(v, t, device=CPU), 600.0, 640, 480,
+                  poses, np.random.default_rng(seed), 96, 0.2)
+    return v, t, poses, _intrinsics(pc)
+
+
+def segment_trajectories(poses, intr, filled: bool, seed=9):
+    """Facade trajectories over ``SEG_BOUNDS``: seeded at their first
+    frame, or filled with N(0, 0.004) noise on every translation but the
+    segment's first and last."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for a, b in SEG_BOUNDS:
+        traj = pc.CameraTrajectory(a, b - a + 1)
+        for f in range(a, b + 1 if filled else a + 1):
+            q, t = poses[f]
+            if f not in (a, b):
+                t = t + rng.normal(0, 0.004, 3).astype(np.float32)
+            traj.set(f, pc.CameraState(intr, pc.Pose(q, t)))
+        out.append(traj)
+    return out
+
+
+def _traj_poses(traj):
+    return np.stack([np.concatenate([traj.get(f).pose.q, traj.get(f).pose.t])
+                     for f in range(traj.first_frame(), traj.last_frame() + 1)
+                     if traj.is_frame_filled(f)])
+
+
+@pytest.fixture(scope="module")
+def seg_scene(tmp_path_factory):
+    db = str(tmp_path_factory.mktemp("segments") / "flow.db")
+    return (db, *segment_scene(db))
+
+
+def test_extensions_complete_the_surface():
+    assert pc.__all__ == jpc.__all__
+    import inspect
+
+    for name in ("device_count", "track_segments", "refine_segments"):
+        ref = list(inspect.signature(getattr(jpc, name)).parameters.values())
+        got = list(inspect.signature(getattr(pc, name)).parameters.values())
+        assert [(p.name, p.default) for p in got[:len(ref)]] == [
+            (p.name, p.default) for p in ref]
+        assert [(p.name, p.kind, p.default) for p in got[len(ref):]] == (
+            [] if name == "device_count" else
+            [("device", inspect.Parameter.KEYWORD_ONLY, None)])
+    assert callable(pc.RefineSegmentsThread)
+    assert pc.device_count() == torch.cuda.device_count() == 0
+
+
+def test_track_segments_facade_matches_engine(seg_scene):
+    from polychase_tpu_torch.engine.levmarq import CAUCHY, BundleOptions
+    from polychase_tpu_torch.parallel.tracking import track_segments
+
+    db, v, t, poses, intr = seg_scene
+    mesh = pc.AcceleratedMesh(v, t)
+    facade = segment_trajectories(poses, intr, filled=False)
+    engine = segment_trajectories(poses, intr, filled=False)
+    counts = pc.track_segments(db, facade, np.eye(4), mesh, device=CPU)
+    ref = track_segments(db, [tr._traj for tr in engine], np.eye(4),
+                         mesh._to_engine(torch.device(CPU)),
+                         bundle_opts=BundleOptions(loss_type=CAUCHY),
+                         device=CPU)
+    np.testing.assert_array_equal(counts, ref)
+    assert counts.shape == (3, 5) and (counts >= 3).all()
+    for a, b in zip(facade, engine):
+        assert all(a.is_frame_filled(f)
+                   for f in range(a.first_frame(), a.last_frame() + 1))
+        np.testing.assert_allclose(_traj_poses(a), _traj_poses(b),
+                                   atol=SEG_ATOL)
+        assert (a.get(a.last_frame()).intrinsics.width,
+                a.get(a.last_frame()).intrinsics.height) == (640, 480)
+
+
+def test_refine_segments_facade_matches_engine(seg_scene):
+    from polychase_tpu_torch.parallel.segments import refine_segments
+
+    db, v, t, poses, intr = seg_scene
+    mesh = pc.AcceleratedMesh(v, t)
+    opts = pc.BundleOptions()
+    opts.max_iterations = 8
+    facade = segment_trajectories(poses, intr, filled=True)
+    engine = segment_trajectories(poses, intr, filled=True)
+    before = [_traj_poses(tr) for tr in facade]
+    assert pc.refine_segments(db, facade, np.eye(4), mesh, False, False,
+                              opts, device=CPU) is None
+    ref = refine_segments(db, [tr._traj for tr in engine], np.eye(4),
+                          mesh._to_engine(torch.device(CPU)),
+                          bundle_opts=opts._to_engine(), device=CPU)
+    for a, b, start in zip(facade, ref, before):
+        got = _traj_poses(a)
+        want = np.stack([np.concatenate([b.get(f).pose.q.numpy(),
+                                         b.get(f).pose.t.numpy()])
+                         for f in range(b.first_frame, b.last_frame + 1)])
+        np.testing.assert_allclose(got, want, atol=SEG_ATOL)
+        assert np.abs(got - start).max() > 1e-4  # it moved
+        np.testing.assert_array_equal(got[[0, -1]], start[[0, -1]])
+
+
+def test_segment_extensions_refuse_without_card(seg_scene, monkeypatch):
+    from polychase_tpu_torch.parallel import segments, tracking
+
+    db, v, t, poses, intr = seg_scene
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ran = []
+    for mod, fn in ((tracking, "track_segments"),
+                    (segments, "refine_segments")):
+        monkeypatch.setattr(mod, fn, lambda *a, _fn=fn, **k: ran.append(_fn))
+    mesh = pc.AcceleratedMesh(v, t)
+    for call in (
+            lambda: pc.track_segments(
+                db, segment_trajectories(poses, intr, False), np.eye(4),
+                mesh),
+            lambda: pc.refine_segments(
+                db, segment_trajectories(poses, intr, True), np.eye(4),
+                mesh, False, False)):
         with pytest.raises(pc.CppException, match="no CUDA device"):
             call()
     assert ran == []

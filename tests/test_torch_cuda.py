@@ -1,6 +1,7 @@
 """K1 (csrc/pnp_lm.cu), K2 (csrc/lk_prep.cu) and K3 (csrc/lk_iter.cu)
 against their plain torch versions on a CUDA card, refine and pin mode
-on the card against the same work on the CPU, and the ``polychase_core``
+on the card against the same work on the CPU, the segment-parallel track
+(one K1 launch a step for every segment), and the ``polychase_core``
 threads with no device argument on the card.
 
 These tests need the card and skip elsewhere.  The file imports no jax, so
@@ -443,6 +444,107 @@ def test_pin_device_route_launches_k1(card, monkeypatch):
     assert pnp_lm.launches == before + 1
     np.testing.assert_allclose(dev.view_matrix.numpy(),
                                host.view_matrix.numpy(), atol=1e-4)
+
+
+def _segment_clip(dev, tmp_path, n=18):
+    """An ``n``-frame 1080p orbit of a 24×32 sphere with 512 keypoints a
+    frame, and the facade's pieces to track or refine it."""
+    import polychase_tpu_torch.polychase_core as pc
+    from polychase_tpu_torch.engine.geometry import Mesh
+    from polychase_tpu_torch.synthetic import (
+        build_flow_db, orbit_poses, uv_sphere,
+    )
+
+    verts, tris = uv_sphere(24, 32)
+    poses = orbit_poses(n)
+    db = str(tmp_path / "flow.db")
+    build_flow_db(db, Mesh.create(verts, tris, device=dev), 1800.0, 1920,
+                  1080, poses, np.random.default_rng(0), 512, 0.2)
+    intr = pc.CameraIntrinsics(1800, 1800, 960, 540, 1, 1920, 1080,
+                               pc.CameraConvention.OpenCV)
+
+    def trajs(bounds, filled, seed=1):
+        rng = np.random.default_rng(seed)
+        out = []
+        for a, b in bounds:
+            traj = pc.CameraTrajectory(a, b - a + 1)
+            for f in range(a, b + 1 if filled else a + 1):
+                q, t = poses[f]
+                if f not in (a, b):
+                    t = t + rng.normal(0, 0.004, 3).astype(np.float32)
+                traj.set(f, pc.CameraState(intr, pc.Pose(q, t)))
+            out.append(traj)
+        return out
+
+    return pc, db, pc.AcceleratedMesh(verts, tris), poses, trajs
+
+
+def test_track_segments_launches_k1_once_a_step(card, tmp_path):
+    """Three segments of 6 frames: 5 steps, so 5 launches of K1 (not 15),
+    the counts equal to the plain route's on the CPU and every pose within
+    5e-3 of the truth on both."""
+    pc, db, mesh, poses, trajs = _segment_clip(card, tmp_path)
+    bounds = ((0, 5), (6, 11), (12, 17))
+    on_card, on_cpu = trajs(bounds, False), trajs(bounds, False)
+    before = pnp_lm.launches
+    counts = pc.track_segments(db, on_card, np.eye(4), mesh)
+    assert pnp_lm.launches == before + 5
+    cpu_counts = pc.track_segments(db, on_cpu, np.eye(4), mesh,
+                                   device="cpu")
+    assert pnp_lm.launches == before + 5
+    np.testing.assert_array_equal(counts, cpu_counts)
+    assert counts.shape == (3, 5) and (counts >= 3).all()
+    for traj in on_card + on_cpu:
+        for f in range(traj.first_frame(), traj.last_frame() + 1):
+            assert np.linalg.norm(traj.get(f).pose.t - poses[f][1]) < 5e-3
+
+
+def test_refine_segments_thread_on_card(card, tmp_path):
+    """A RefineSegmentsThread built with no device refines on the card:
+    its progress message, then True, and the poses within 5e-4 of the same
+    refine on the CPU."""
+    pc, db, mesh, poses, trajs = _segment_clip(card, tmp_path)
+    bounds = ((0, 8), (9, 17))
+    opts = pc.BundleOptions()
+    opts.loss_type = pc.LossType.Cauchy
+    opts.max_iterations = 10
+    on_card, on_cpu = trajs(bounds, True), trajs(bounds, True)
+    msgs = drain(pc.RefineSegmentsThread(db, on_card, np.eye(4), mesh,
+                                         False, False, opts))
+    assert [m.message for m in msgs] == ["Refining 2 segments in parallel"]
+    pc.refine_segments(db, on_cpu, np.eye(4), mesh, False, False, opts,
+                       device="cpu")
+    for a, b in zip(on_card, on_cpu):
+        for f in range(a.first_frame(), a.last_frame() + 1):
+            np.testing.assert_allclose(a.get(f).pose.t, b.get(f).pose.t,
+                                       atol=5e-4)
+
+
+def test_segments_split_over_cards(card, tmp_path):
+    """Four segments over every visible card (the facade's default) against
+    the same on one card: the counts equal, the tracked and the refined
+    poses within 1e-4."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    pc, db, mesh, poses, trajs = _segment_clip(card, tmp_path, n=24)
+    bounds = ((0, 5), (6, 11), (12, 17), (18, 23))
+    one, every = trajs(bounds, False), trajs(bounds, False)
+    counts = pc.track_segments(db, one, np.eye(4), mesh, device="cuda:0")
+    np.testing.assert_array_equal(
+        pc.track_segments(db, every, np.eye(4), mesh), counts)
+    opts = pc.BundleOptions()
+    opts.max_iterations = 10
+    filled_one, filled_every = trajs(bounds, True), trajs(bounds, True)
+    pc.refine_segments(db, filled_one, np.eye(4), mesh, False, False, opts,
+                       device="cuda:0")
+    pc.refine_segments(db, filled_every, np.eye(4), mesh, False, False,
+                       opts)
+    for a, b in zip(one + filled_one, every + filled_every):
+        for f in range(a.first_frame(), a.last_frame() + 1):
+            np.testing.assert_allclose(a.get(f).pose.t, b.get(f).pose.t,
+                                       atol=1e-4)
+            np.testing.assert_allclose(a.get(f).pose.q, b.get(f).pose.q,
+                                       atol=1e-4)
 
 
 # ---------------------------------------------------------------------------

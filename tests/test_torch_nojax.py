@@ -1,9 +1,11 @@
 """The port runs with jax and the JAX package unimportable: a tiny track, a
-tiny analyze, a tiny refine followed by a pin drag, and the tracker and
-optical-flow threads of its ``polychase_core``, each in a fresh
-process whose import system refuses ``jax``, ``jaxlib``, ``polychase_tpu``
-and every ``polychase_tpu.*`` module (``polychase_tpu_torch`` is another
-top-level name and stays importable)."""
+tiny analyze, a tiny refine followed by a pin drag, the tracker and
+optical-flow threads of its ``polychase_core``, and the segment-parallel
+track and refine (the refine through ``RefineSegmentsThread``), each in a
+fresh process whose import system refuses ``jax``, ``jaxlib``,
+``polychase_tpu`` and every ``polychase_tpu.*`` module
+(``polychase_tpu_torch`` is another top-level name and stays
+importable)."""
 
 import os
 import subprocess
@@ -246,6 +248,73 @@ SURFACE = REFUSE_JAX + textwrap.dedent(
 )
 
 
+SEGMENTS = REFUSE_JAX + textwrap.dedent(
+    """
+    import time
+
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+
+    import polychase_tpu_torch.polychase_core as pc
+    from polychase_tpu_torch.engine.geometry import Mesh
+    from polychase_tpu_torch.parallel.segments import refine_segments
+    from polychase_tpu_torch.parallel.tracking import track_segments
+    from polychase_tpu_torch.runtime.threads import RefineSegmentsThread
+    from polychase_tpu_torch.synthetic import (
+        build_flow_db, orbit_poses, uv_sphere,
+    )
+
+    assert pc.RefineSegmentsThread is RefineSegmentsThread
+    assert callable(refine_segments) and callable(track_segments)
+    verts, tris = uv_sphere(12, 16)
+    poses = orbit_poses(10)
+    intr = pc.CameraIntrinsics(600, 600, 320, 240, 1, 640, 480,
+                               pc.CameraConvention.OpenCV)
+    mesh = pc.AcceleratedMesh(verts, tris)
+
+    def seeded(a, b, filled):
+        traj = pc.CameraTrajectory(a, b - a + 1)
+        for f in range(a, b + 1 if filled else a + 1):
+            traj.set(f, pc.CameraState(intr, pc.Pose(*poses[f])))
+        return traj
+
+    with tempfile.TemporaryDirectory() as td:
+        db = os.path.join(td, "flow.db")
+        build_flow_db(db, Mesh.create(verts, tris, device="cpu"), 600.0,
+                      640, 480, poses, np.random.default_rng(0), 96, 0.0)
+        tracked = [seeded(0, 4, False), seeded(5, 9, False)]
+        counts = pc.track_segments(db, tracked, np.eye(4), mesh,
+                                   device="cpu")
+        refined = [seeded(0, 4, True), seeded(5, 9, True)]
+        thread = RefineSegmentsThread(db, refined, np.eye(4), mesh, False,
+                                      False, pc.BundleOptions(),
+                                      device="cpu")
+        msgs, deadline = [], time.monotonic() + 60
+        while (msg := thread.try_pop()) is not True:
+            assert time.monotonic() < deadline, "no done message in 60 s"
+            if isinstance(msg, Exception):
+                raise msg
+            if msg is None:
+                time.sleep(0.005)
+            else:
+                msgs.append(msg)
+        thread.join()
+    assert counts.shape == (2, 4) and (counts >= 3).all(), counts
+    for traj in tracked:
+        for f in range(traj.first_frame(), traj.last_frame() + 1):
+            assert np.linalg.norm(traj.get(f).pose.t - poses[f][1]) < 5e-3
+    assert [m.message for m in msgs] == ["Refining 2 segments in parallel"]
+    for traj in refined:
+        for f in range(traj.first_frame(), traj.last_frame() + 1):
+            assert np.linalg.norm(traj.get(f).pose.t - poses[f][1]) < 5e-3
+    assert_nothing_leaked()
+    print("tracked and refined segments without jax")
+    """
+)
+
+
 def _run(script):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -278,3 +347,9 @@ def test_port_threads_run_without_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert ("ran the tracker and optical-flow threads without jax"
             in proc.stdout)
+
+
+def test_port_segments_run_without_jax():
+    proc = _run(SEGMENTS)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "tracked and refined segments without jax" in proc.stdout

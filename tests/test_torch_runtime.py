@@ -11,6 +11,8 @@ held against the JAX facade's free function on the same seeded inputs:
   frame by frame;
 - ``RefinerThread``: ``test_torch_refiner.py``'s poses within 5e-4 of the
   JAX refine, ``test_api.py``'s 2.5e-3 to the truth, anchors to the bit;
+- ``RefineSegmentsThread``: its one progress message, then ``True``, and
+  the trajectories equal to ``pc.refine_segments``'s within 1e-6;
 - ``OpticalFlowThread``: ``test_torch_opticalflow.py``'s LK bounds against
   the JAX analyze; through a jittery provider and through the 17-slot ring
   (26 frames), the DB equal to the port's direct analyze, each frame
@@ -40,6 +42,7 @@ from polychase_tpu_torch.synthetic import panning_clip
 
 from synthetic import make_intrinsics, make_sphere_mesh, orbit_pose
 from test_opticalflow import make_clip
+from test_torch_api import segment_scene, segment_trajectories
 from test_torch_opticalflow import assert_flows_match
 from test_tracker import build_flow_db, pose_errors
 from thread_drain import DEADLINE_S, drain
@@ -142,6 +145,30 @@ def test_refiner_thread(tmp_path, rng):
         assert np.linalg.norm(got.t - np.asarray(poses[i].t)) < REFINE_T_GT
         np.testing.assert_allclose(got.t, ref.t, atol=REFINE_ATOL)
         np.testing.assert_allclose(got.q, ref.q, atol=REFINE_ATOL)
+
+
+def test_refine_segments_thread(tmp_path):
+    db = str(tmp_path / "flow.db")
+    v, t, poses, intr = segment_scene(db)
+    mesh = pc.AcceleratedMesh(v, t)
+    opts = pc.BundleOptions()
+    opts.max_iterations = 8
+    ref = segment_trajectories(poses, intr, filled=True)
+    pc.refine_segments(db, ref, EYE, mesh, False, False, opts, device=CPU)
+    trajs = segment_trajectories(poses, intr, filled=True)
+    thread = pc.RefineSegmentsThread(db, trajs, EYE, mesh, False, False,
+                                     opts, device=CPU)
+    msgs = drain(thread)
+    assert len(msgs) == 1 and isinstance(msgs[0], pc.RefineTrajectoryUpdate)
+    assert (msgs[0].progress, msgs[0].message) == (
+        0.0, "Refining 3 segments in parallel")
+    assert not thread.stopped
+    for a, b in zip(trajs, ref):
+        for f in range(a.first_frame(), a.last_frame() + 1):
+            np.testing.assert_allclose(a.get(f).pose.t, b.get(f).pose.t,
+                                       atol=1e-6)
+            np.testing.assert_allclose(a.get(f).pose.q, b.get(f).pose.q,
+                                       atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -382,4 +409,25 @@ def test_threads_refuse_without_card(tmp_path, monkeypatch):
         assert len(errors) == 1
         assert isinstance(errors[0], pc.CppException)
         assert "no CUDA device" in errors[0].what()
+    assert ran == []
+
+
+def test_refine_segments_thread_refuses_without_card(tmp_path, monkeypatch):
+    """The segments thread resolves ``None`` to every card; with none its
+    first message is the CppException, then True, and nothing runs."""
+    from polychase_tpu_torch.parallel import segments
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ran = []
+    monkeypatch.setattr(segments, "refine_segments",
+                        lambda *a, **k: ran.append(a))
+    accel = pc.AcceleratedMesh(np.zeros((3, 3), np.float32),
+                               np.array([[0, 1, 2]], np.uint32))
+    errors = []
+    thread = pc.RefineSegmentsThread(
+        str(tmp_path / "flow.db"), [pc.CameraTrajectory(0, 3)], EYE, accel,
+        False, False, pc.BundleOptions())
+    assert drain(thread, errors=errors) == []
+    assert len(errors) == 1 and isinstance(errors[0], pc.CppException)
+    assert "no CUDA device" in errors[0].what()
     assert ran == []
