@@ -65,9 +65,10 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    per pin count are ``python3 -m polychase_tpu_torch.crossover``'s.)
 9. Surface phase: the data of the phases above through
    ``polychase_tpu_torch.polychase_core`` with no device argument, so on
-   the card by default.  An ``OpticalFlowThread`` on the panning clip
-   (analyze's gates, the direct run's keypoints and pairs, each frame
-   requested once, K2 and K3 once per level of every solve); a forward
+   the card by default (analyze and refine on every card).  An
+   ``OpticalFlowThread`` on the panning clip (analyze's gates, the direct
+   run's keypoints and pairs, each frame requested once, K2 and K3 once per
+   level of every solve, and of every shard with several cards); a forward
    ``TrackerThread`` over the tracking clip (the ground truth, the direct
    run's poses within 1e-6, one K1 launch a frame); a ``RefinerThread`` on
    config 4 (refine's gates); 20 8-pin drags and one 16,384-point drag
@@ -97,9 +98,29 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     1e-6.  Prints tracking frames/s and refine seconds, sequential against
     segment-parallel, in turns (sequential, parallel, parallel,
     sequential).
-11. Prints the card, the kernels' JSON line (time, plain time, bound and
+11. Sharded phase: analyze and refine split over every card, or over two
+    shards on card 0 when there is one (that runs the split, the per-shard
+    launches and the sum, and measures no scaling).  The 24-frame panning
+    clip through ``generate_optical_flow_database(device=list)`` (its
+    ~42.4k corners a frame take the feature split): keypoints equal to the
+    analyze phase's one-device DB, the same pairs and kept flows, the flows
+    equal to the bit or else within 1e-4 px, K2 and K3 launched once per
+    level of every shard of every solve.  One interior source frame's solve
+    (T = 8) split by targets (``parallel.analyze.sharded_lk_multi``) and by
+    features against ``_lk_all_levels_multi`` the same way, each timed with
+    its K2 and K3 device time.  Config 4 through
+    ``refine_trajectory(device=list)``: the sharded normal equations at the
+    start against ``build_normal_equations`` (rtol 1e-3, atol 1e-5 × the
+    largest entry), the prims of refine's split refresh and of
+    ``sharded_raycast_flat`` equal to ``refresh_prims``', each cast timed,
+    the per-rebuild copy of a partial JᵀJ timed between two cards, refine's
+    gates, and against the one-device refine the same iterations, the final
+    cost within 1e-4 (relative) and every pose within 1e-4 rad and 1e-4.
+    Then analyze frames/s and refine seconds, one device against the list,
+    in turns (one, list, list, one).
+12. Prints the card, the kernels' JSON line (time, plain time, bound and
     what sets it, launches on the main path (the analyze, tracking and pin
-    phases) and apart in the surface and segments phases, largest
+    phases) and apart in the surface, segments and sharded phases, largest
     difference) and, last, ``{"ok": true, ...}``.
 
 Any failed check raises, so the script exits non-zero without the last line.
@@ -779,10 +800,17 @@ def analyze_phase(device, frames, workdir):
 
 
 def quat_err(qa, qb) -> float:
-    """Rotation angle between two unit quaternions, in float64."""
-    qa = np.asarray(qa, np.float64) / np.linalg.norm(qa)
-    qb = np.asarray(qb, np.float64) / np.linalg.norm(qb)
-    return 2.0 * float(np.arccos(min(abs(float(np.dot(qa, qb))), 1.0)))
+    """Rotation angle between two unit quaternions, in float64: 4·atan2 of
+    the chord and its complement, which keeps its precision at small
+    angles (2·arccos of the dot product of float32 quaternions read up to
+    7e-4 rad for ones equal within 3e-8)."""
+    qa = np.asarray(qa, np.float64)
+    qb = np.asarray(qb, np.float64)
+    qa, qb = qa / np.linalg.norm(qa), qb / np.linalg.norm(qb)
+    if np.dot(qa, qb) < 0.0:
+        qb = -qb
+    return 4.0 * float(np.arctan2(np.linalg.norm(qa - qb),
+                                  np.linalg.norm(qa + qb)))
 
 
 def translation_err(r, t_gt, free_intrinsics: bool) -> float:
@@ -1069,16 +1097,13 @@ def refine_gates(state, poses, ends, before, stats):
     return fails
 
 
-def refine_phase(device, workdir, *, n_frames=REFINE_FRAMES,
-                 keypoints=REFINE_KEYPOINTS, sphere=REFINE_SPHERE, seed=2):
-    """Config 4 on the card, its flow DB written into ``workdir``.  Returns
-    the timed run's wall seconds and iteration count, and what the surface
-    phase reuses: the DB, the mesh's arrays, the ground truth and a maker
-    of noisy starting trajectories."""
+def refine_inputs(device, workdir, *, n_frames=REFINE_FRAMES,
+                  keypoints=REFINE_KEYPOINTS, sphere=REFINE_SPHERE, seed=2):
+    """Config 4's clip: its flow DB written into ``workdir``; returns the
+    DB, the mesh's arrays, the ground truth and a maker of noisy starting
+    trajectories, and the mesh on ``device``."""
     from polychase_tpu_torch.engine.camera import OPENCV, Intrinsics
     from polychase_tpu_torch.engine.geometry import Mesh
-    from polychase_tpu_torch.engine.levmarq import CAUCHY, BundleOptions
-    from polychase_tpu_torch.engine.refiner import refine_trajectory
     from polychase_tpu_torch.synthetic import (
         build_flow_db, noisy_trajectory, orbit_poses, uv_sphere,
     )
@@ -1089,8 +1114,6 @@ def refine_phase(device, workdir, *, n_frames=REFINE_FRAMES,
     intr = Intrinsics.create(FOCAL, FOCAL, WIDTH / 2, HEIGHT / 2, 1.0, WIDTH,
                              HEIGHT, OPENCV, device=device)
     poses = orbit_poses(n_frames)
-    opts = BundleOptions(loss_type=CAUCHY, loss_scale=1.0,
-                         max_iterations=REFINE_ITERS)
     print(f"  clip: {WIDTH}x{HEIGHT}, f={FOCAL:g}, {n_frames} frames, "
           f"{len(tris)} triangles, {keypoints} keypoints/frame, "
           f"{NOISE_PX} px noise; translations noised by N(0, "
@@ -1102,6 +1125,22 @@ def refine_phase(device, workdir, *, n_frames=REFINE_FRAMES,
     db_path = os.path.join(workdir, "refine.db")
     build_flow_db(db_path, mesh, FOCAL, WIDTH, HEIGHT, poses, rng,
                   keypoints, NOISE_PX)
+    return dict(db=db_path, verts=verts, tris=tris, poses=poses,
+                noisy=noisy), mesh
+
+
+def refine_phase(device, workdir, **size):
+    """Config 4 on the card, its flow DB written into ``workdir``.  Returns
+    the timed run's wall seconds and iteration count, and what the surface
+    phase reuses: ``refine_inputs``' dict."""
+    from polychase_tpu_torch.engine.levmarq import CAUCHY, BundleOptions
+    from polychase_tpu_torch.engine.refiner import refine_trajectory
+
+    refine, mesh = refine_inputs(device, workdir, **size)
+    db_path, poses, noisy = refine["db"], refine["poses"], refine["noisy"]
+    n_frames = len(poses)
+    opts = BundleOptions(loss_type=CAUCHY, loss_scale=1.0,
+                         max_iterations=REFINE_ITERS)
 
     def run(traj, callback=None):
         t0 = time.perf_counter()
@@ -1146,8 +1185,6 @@ def refine_phase(device, workdir, *, n_frames=REFINE_FRAMES,
           + f", other {busy_ms - sum(labels.values()):.3f}")
     if fails:
         raise AssertionError("refine:\n" + "\n".join(fails))
-    refine = dict(db=db_path, verts=verts, tris=tris, poses=poses,
-                  noisy=noisy)
     return wall, iters, refine
 
 
@@ -1280,6 +1317,7 @@ def surface_phase(device, frames, analyze_db, track, refine, workdir, smi):
     its gated runs."""
     import polychase_tpu_torch.polychase_core as pc
     from polychase_tpu_torch import crossover
+    from polychase_tpu_torch.backend import surface_devices
     from polychase_tpu_torch.engine import pinmode, raycast
     from polychase_tpu_torch.engine.geometry import Mesh
     from polychase_tpu_torch.engine.opticalflow import (
@@ -1307,12 +1345,17 @@ def surface_phase(device, frames, analyze_db, track, refine, workdir, smi):
     path = os.path.join(workdir, "surface_analyze.db")
     seconds, msgs, requested = analyze_thread(path)
     lk_launches = (lk_prep.launches, lk_iter.launches)
+    kps, flows = read_analyze_db(path, n)
+    # The thread takes every card. Config 1b's ~42.4k corners a frame take
+    # the feature split, one shard a card, so every solve launches once per
+    # level and card.
+    cards = torch.cuda.device_count()
     levels, solves = analyze_solves(n, height, width)
+    solves *= cards
     print(f"  OpticalFlowThread: {n} frames in {seconds:.3f} s, "
           f"{len(msgs)} progress messages, last {msgs[-1]}; K2 / K3 launches "
-          f"{lk_launches[0]} / {lk_launches[1]} (= {solves} solves x "
-          f"{levels} levels)")
-    kps, flows = read_analyze_db(path, n)
+          f"{lk_launches[0]} / {lk_launches[1]} (= {solves} shards of solves "
+          f"x {levels} levels, {cards} cards)")
     fails += analyze_gates(kps, flows, n)
     ref_kps, ref_flows = read_analyze_db(analyze_db, n)
     same_kps = all(np.array_equal(a, b) for a, b in zip(kps, ref_kps))
@@ -1493,7 +1536,7 @@ def surface_phase(device, frames, analyze_db, track, refine, workdir, smi):
     def analyze_direct(path):
         t0 = time.perf_counter()
         generate_optical_flow_database(engine_info, lambda f: frames[f], None,
-                                       path, device=device)
+                                       path, device=surface_devices(None))
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -1833,6 +1876,357 @@ def segments_phase(device, track, refine, smi):
     return launches, seg_err
 
 
+# ---------------------------------------------------------------------------
+# Sharded phase
+# ---------------------------------------------------------------------------
+
+# The split analyze against the one-device DB: equal to the bit, or failing
+# that, the same kept flows within this many px.
+SHARD_POS_ATOL = 1e-4
+# The sharded normal equations (tests/test_sharded.py:67-78).
+SHARD_JTJ_RTOL, SHARD_JTJ_ATOL = 1e-3, 1e-5
+# The sharded refine against the one-device refine: the same iterations,
+# the final cost within this relative difference and every pose within
+# this many rad and scene units. The two differ only in the order the
+# normal equations are summed (poses 5.25e-6 apart on an H100 80GB HBM3,
+# two shards on one card).
+SHARD_COST_RTOL = 1e-4
+SHARD_POSE = 1e-4
+
+
+def shard_devices():
+    """Every card when there are two or more; else two shards on card 0,
+    which run the split but measure no scaling."""
+    n = torch.cuda.device_count()
+    if n > 1:
+        return [torch.device("cuda", i) for i in range(n)], True
+    return [torch.device("cuda", 0)] * 2, False
+
+
+def kernel_device_ms(fn, names, reps=3):
+    """The device time (ms) of the kernels whose names contain each of
+    ``names``, per run of ``fn``, over ``reps`` runs under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            for name in names:
+                if name in e.name():
+                    out[name] += (e.end_ns() - e.start_ns()) / 1e6 / reps
+    return out
+
+
+def same_solve(got, ref):
+    """Largest position difference of a split solve from the one-device
+    solve on the pairs both keep, and whether status, positions and err are
+    equal to the bit."""
+    bits = all(torch.equal(a, b) for a, b in zip(got, ref))
+    both = got[1] & ref[1]
+    dpos = float((got[0] - ref[0]).abs()[both].max()) if bool(both.any()) \
+        else 0.0
+    return bits, bool(torch.equal(got[1], ref[1])), dpos
+
+
+def sharded_phase(device, frames, analyze_db, refine, smi):
+    """Analyze and refine split over several devices (module docstring,
+    item 11).  Returns the K2 and K3 launches of the gated split analyze."""
+    from polychase_tpu_torch.engine import lk
+    from polychase_tpu_torch.engine import refiner as R
+    from polychase_tpu_torch.engine.camera import CameraState
+    from polychase_tpu_torch.engine.geometry import Mesh
+    from polychase_tpu_torch.engine.gftt import good_features_to_track
+    from polychase_tpu_torch.engine.levmarq import CAUCHY, BundleOptions
+    from polychase_tpu_torch.engine.opticalflow import (
+        IMAGE_SKIPS, VideoInfo, generate_optical_flow_database,
+    )
+    from polychase_tpu_torch.engine.pose import Pose
+    from polychase_tpu_torch.engine.trajectory import CameraTrajectory
+    from polychase_tpu_torch.io.database import Database
+    from polychase_tpu_torch.kernels import lk_iter, lk_prep
+    from polychase_tpu_torch.parallel.analyze import (
+        sharded_lk_multi, sharded_lk_multi_feat,
+    )
+    from polychase_tpu_torch.parallel import mesh_on
+    from polychase_tpu_torch.parallel.raycast import (
+        sharded_raycast_flat, split_cast,
+    )
+    from polychase_tpu_torch.parallel.sharded import EdgeShards
+
+    fails = []
+    devices, cards = shard_devices()
+    print(f"  devices: {[str(d) for d in devices]} "
+          + ("(every card)" if cards else
+             "(two shards on the one card: this runs the split, the "
+             "per-shard launches and the sum, and measures no scaling)"))
+    n = len(frames)
+    height, width = frames[0].shape
+    info = VideoInfo(width, height, 0, n)
+    workdir = os.path.dirname(analyze_db)
+
+    def analyze(path, on):
+        t0 = time.perf_counter()
+        generate_optical_flow_database(info, lambda f: frames[f], None, path,
+                                       device=on)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # Analyze over the devices, against the analyze phase's one-device DB.
+    lk_prep.launches = lk_iter.launches = 0
+    split_db = os.path.join(workdir, "sharded_analyze.db")
+    seconds = analyze(split_db, devices)
+    launches = (lk_prep.launches, lk_iter.launches)
+    kps, flows = read_analyze_db(split_db, n)
+    ref_kps, ref_flows = read_analyze_db(analyze_db, n)
+    # Every frame keeps over FEAT_SHARD_MIN corners, so every solve splits
+    # by features, one shard a device, each shard launching K2 and K3 once
+    # a level.
+    levels, solves = analyze_solves(n, height, width)
+    n_shards = solves * len(devices)
+    routes = {lk.split_route(k.shape[0], 8, len(devices)) for k in ref_kps}
+    same_kps = all(np.array_equal(a, b) for a, b in zip(kps, ref_kps))
+    same_kept = all(np.array_equal(flows[k].src_kps_indices,
+                                   ref_flows[k].src_kps_indices)
+                    for k in ref_flows if k in flows)
+    dflow = max((float(np.abs(flows[k].tgt_kps - ref_flows[k].tgt_kps).max(
+        initial=0.0)) for k in ref_flows if k in flows), default=0.0)
+    print(f"  analyze over the devices: {n} frames in {seconds:.3f} s, "
+          f"route {sorted(routes)} (corners per frame "
+          f"{min(k.shape[0] for k in ref_kps)}.."
+          f"{max(k.shape[0] for k in ref_kps)}, FEAT_SHARD_MIN "
+          f"{lk.FEAT_SHARD_MIN}); K2 / K3 launches {launches[0]} / "
+          f"{launches[1]} (= {n_shards} shards of solves x {levels} levels); "
+          f"against the one-device DB: keypoints "
+          f"{'equal' if same_kps else 'DIFFER'}, kept flows "
+          f"{'the same' if same_kept else 'DIFFER'}, largest flow "
+          f"difference {dflow:.3g} px"
+          + (" (equal to the bit)" if dflow == 0.0 else ""))
+    if routes != {"features"}:
+        fails.append(f"the split analyze's solves took {sorted(routes)}, "
+                     f"want the feature split")
+    if launches != (levels * n_shards,) * 2:
+        fails.append(f"K2/K3 launched {launches} times, want "
+                     f"{levels * n_shards}")
+    if not same_kps or set(flows) != set(ref_flows) or not same_kept:
+        fails.append("the split analyze's keypoints, pairs or kept flows "
+                     "differ from the one-device analyze's")
+    if dflow > SHARD_POS_ATOL:
+        fails.append(f"the split analyze's flows differ by {dflow:.3g} px")
+
+    # One interior source frame's solve (T = 8), split by targets and by
+    # features, against the one-device solve on the same inputs.
+    opts = lk.LKOptions()
+    pts, _ = good_features_to_track(frames[PAN_SOURCE], device=device)
+    pts = torch.as_tensor(lk._spatial_sort(pts)[0], device=device)
+    src = lk.prepare_pyramid(frames[PAN_SOURCE], opts, device=device)
+    tgts = [lk.prepare_pyramid(frames[PAN_SOURCE + s], opts, device=device)
+            for s in IMAGE_SKIPS]
+    stacked = [torch.stack([t.levels[lvl][0] for t in tgts])
+               for lvl in range(src.num_levels)]
+    args = (src.levels, stacked, pts, float(opts.term_epsilon ** 2),
+            float(opts.min_eigen_threshold))
+    kw = dict(win=opts.window_size, max_iters=opts.term_max_iters,
+              levels=src.num_levels)
+    solves = {"one device": lambda: lk._lk_all_levels_multi(*args, **kw),
+              "targets": lambda: sharded_lk_multi(devices, *args, **kw),
+              "features": lambda: sharded_lk_multi_feat(devices, *args, **kw)}
+    ref = solves["one device"]()
+    for name in ("targets", "features"):
+        bits, status, dpos = same_solve(solves[name](), ref)
+        print(f"  source frame {PAN_SOURCE}, {pts.shape[0]} corners x "
+              f"{len(tgts)} targets split by {name}: "
+              + ("equal to the bit" if bits else
+                 f"status {'equal' if status else 'DIFFERS'}, largest "
+                 f"position difference {dpos:.3g} px"))
+        if not bits and (not status or dpos > SHARD_POS_ATOL):
+            fails.append(f"the solve split by {name} differs from the "
+                         f"one-device solve ({dpos:.3g} px)")
+    # In turns: one device, targets, features, features, targets, one.
+    for name in ("one device", "targets", "features", "features", "targets",
+                 "one device"):
+        fn = solves[name]
+        ms = event_ms(fn, 5)
+        k = kernel_device_ms(fn, ("lk_prep_kernel", "lk_iter_kernel"))
+        print(f"    {name}: {ms:.4f} ms a solve (CUDA events); device time "
+              f"of K2 {k['lk_prep_kernel']:.4f} ms, K3 "
+              f"{k['lk_iter_kernel']:.4f} ms a solve (all levels, every "
+              f"shard; profiler, 3 solves)")
+    if devices[-1] != devices[0]:
+        # What a solve copies to another card under the feature split: the
+        # source levels and every target's levels.
+        moved = [t for lv in src.levels for t in lv[:3]] + stacked
+        nbytes = sum(t.numel() * 4 for t in moved)
+        ms = event_ms(lambda: [t.to(devices[-1]) for t in moved], 5)
+        print(f"  a solve's levels to {devices[-1]} ({nbytes} bytes): "
+              f"{ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s")
+    else:
+        print("  a solve's levels to the other shard: none, both shards are "
+              f"on {devices[0]} (not measured)")
+
+    # Refine, config 4, over the devices.
+    poses = refine["poses"]
+    nf = len(poses)
+    mesh = Mesh.create(refine["verts"], refine["tris"], device=device)
+    ropts = BundleOptions(loss_type=CAUCHY, loss_scale=1.0,
+                          max_iterations=REFINE_ITERS)
+    start = refine["noisy"]()
+    eye4 = np.eye(4, dtype=np.float32)
+
+    def copy(traj):
+        out = CameraTrajectory(0, nf)
+        for i in range(nf):
+            s = traj.get(i)
+            out.set(i, CameraState(s.intrinsics, Pose(s.pose.q.clone(),
+                                                      s.pose.t.clone())))
+        return out
+
+    def refined(on, callback=None):
+        traj = copy(start)
+        t0 = time.perf_counter()
+        R.refine_trajectory(refine["db"], traj, eye4, mesh,
+                            optimize_focal_length=True, callback=callback,
+                            bundle_opts=ropts, device=on)
+        torch.cuda.synchronize()
+        return traj, time.perf_counter() - t0
+
+    db = Database(refine["db"])
+    try:
+        data = R.build_refiner_data(db, start, mesh, eye4, device=device)
+    finally:
+        db.close()
+    params = R.traj_to_params(start, device=device)
+    eye = torch.eye(4, device=device)
+    tri = mesh.triangle_corners()
+    prims = R.refresh_prims(params, data, mesh, eye)
+    # The refresh refine_trajectory runs on the devices (the frames' ray
+    # groups split over them), and the ported flat cast (each ray a group
+    # of one), against the one-device refresh.
+    routed = "host BVH" if R._refresh_routing(mesh) else "device sweep"
+    split_prims = R._make_prim_refresher(data, mesh, eye, eye, tri, 1.0,
+                                         CAUCHY, devices=devices)(params)[0]
+    F, K = data.kp_valid.shape
+    origin_o, dir_o = R._all_rays(params, data, eye)
+    o_flat = origin_o[:, None, :].expand(F, K, 3).reshape(-1, 3)
+    d_flat = dir_o.reshape(-1, 3)
+    hits = sharded_raycast_flat(devices, mesh, o_flat, d_flat)
+    flat = torch.where(hits.valid.reshape(F, K) & data.kp_valid,
+                       hits.prim_id.reshape(F, K), -1)
+    same_prims = (bool(torch.equal(split_prims, prims)),
+                  bool(torch.equal(flat, prims)))
+    meshes = [mesh_on(mesh, d) for d in devices]
+    cast_ms = (event_ms(lambda: R.refresh_prims(params, data, mesh, eye), 5),
+               event_ms(lambda: split_cast(devices, meshes, origin_o, dir_o),
+                        5),
+               event_ms(lambda: sharded_raycast_flat(devices, meshes, o_flat,
+                                                     d_flat), 5))
+    nkw = dict(loss_type=CAUCHY, opt_f=True, opt_pp=False, ppc=9)
+    edges = EdgeShards(devices, data, tri, eye, eye)
+    split_ne = edges.normal_equations(params, prims, 1.0, **nkw)
+    one_ne = R.build_normal_equations(params, data, prims, tri, eye, eye,
+                                      1.0, **nkw)
+    rel = []
+    for got, want in zip(split_ne, one_ne):
+        excess = ((got - want).abs() - SHARD_JTJ_RTOL * want.abs()
+                  - SHARD_JTJ_ATOL * float(want.abs().max()))
+        rel.append(float((got - want).abs().max() / want.abs().max()))
+        if float(excess.max()) > 0:
+            fails.append("the sharded normal equations differ from "
+                         "build_normal_equations beyond rtol 1e-3, atol "
+                         "1e-5 x max")
+    ne_ms = (event_ms(lambda: R.build_normal_equations(
+        params, data, prims, tri, eye, eye, 1.0, **nkw), 5),
+        event_ms(lambda: edges.normal_equations(params, prims, 1.0, **nkw), 5))
+    P = split_ne[0].shape[0]
+    print(f"  refine, config 4 (P = {P}, {int(data.src_frame.shape[0])} "
+          f"edges): the split prim refresh ({routed}) "
+          f"{'equal to' if same_prims[0] else 'DIFFERS from'} refresh_prims', "
+          f"sharded_raycast_flat's prims "
+          f"{'equal' if same_prims[1] else 'DIFFER'} (the cast "
+          f"{cast_ms[0]:.4f} ms grouped on one device, {cast_ms[1]:.4f} ms "
+          f"grouped and split, {cast_ms[2]:.4f} ms flat and split); the "
+          f"sharded system's largest difference from build_normal_equations "
+          f"{rel[0]:.3g} (JtJ) / {rel[1]:.3g} (Jtr) of the largest entry; "
+          f"the build {ne_ms[0]:.4f} ms on one device, {ne_ms[1]:.4f} ms "
+          f"split")
+    if not same_prims[0]:
+        fails.append("the split prim refresh differs from refresh_prims'")
+    if not same_prims[1]:
+        fails.append("sharded_raycast_flat's prims differ from refresh_prims'")
+    part = split_ne[0].to(devices[-1])
+    if devices[-1] != devices[0]:
+        copy_ms = event_ms(lambda: part.to(devices[0]), 10)
+        peer = torch.cuda.can_device_access_peer(devices[0].index,
+                                                 devices[-1].index)
+        print(f"  the per-rebuild copy of a partial JtJ ({part.numel() * 4} "
+              f"bytes) from {devices[-1]} to {devices[0]}: {copy_ms:.4f} ms, "
+              f"{part.numel() * 4 / copy_ms / 1e6:.1f} GB/s; peer access "
+              f"{peer}")
+    else:
+        print(f"  the per-rebuild copy of a partial JtJ ({part.numel() * 4} "
+              f"bytes): none, both shards are on {devices[0]} (not measured)")
+
+    updates, one_updates = [], []
+    split, _ = refined(devices, lambda u: updates.append(u) or True)
+    one, _ = refined(device, lambda u: one_updates.append(u) or True)
+
+    def state(i):
+        s = split.get(i)
+        return (s.pose.q.numpy().copy(), s.pose.t.numpy().copy(),
+                float(s.intrinsics.fy))
+
+    ends = [(start.get(i).pose.q.numpy().copy(),
+             start.get(i).pose.t.numpy().copy(),
+             float(start.get(i).intrinsics.fy)) for i in (0, nf - 1)]
+    before = np.array([np.linalg.norm(start.get(i).pose.t.numpy()
+                                      - poses[i][1]) for i in range(nf)])
+    stats, one_stats = updates[-1].stats, one_updates[-1].stats
+    iters = (int(stats.iterations), int(one_stats.iterations))
+    dcost = abs(float(stats.cost) - float(one_stats.cost)) / abs(
+        float(one_stats.cost))
+    print(f"  refine over the devices: {iters[0]} iterations (one device "
+          f"{iters[1]}), final cost {float(stats.cost):.6g} (one device "
+          f"{float(one_stats.cost):.6g}, relative difference {dcost:.3g})")
+    fails += refine_gates(state, poses, ends, before, stats)
+    drot = max(quat_err(split.get(i).pose.q.numpy(), one.get(i).pose.q.numpy())
+               for i in range(nf))
+    dt = max(float(np.linalg.norm(split.get(i).pose.t.numpy()
+                                  - one.get(i).pose.t.numpy()))
+             for i in range(nf))
+    print(f"  against the one-device refine: max rot {drot:.3g} rad, max "
+          f"|dt| {dt:.3g}")
+    if iters[0] != iters[1]:
+        fails.append(f"the sharded refine took {iters[0]} iterations, the "
+                     f"one-device refine {iters[1]}")
+    if dcost > SHARD_COST_RTOL:
+        fails.append(f"the sharded refine's final cost differs from the "
+                     f"one-device refine's by {dcost:.3g} (relative)")
+    if drot > SHARD_POSE or dt > SHARD_POSE:
+        fails.append(f"the sharded refine differs from the one-device "
+                     f"refine by {drot:.3g} rad / {dt:.3g}")
+    if fails:
+        raise AssertionError("sharded:\n" + "\n".join(fails))
+
+    # One device against the device list, in turns.
+    turns = {"analyze frames/s": [], "refine s": []}
+    for i, how in enumerate(("one device", "split", "split", "one device")):
+        on = device if how == "one device" else devices
+        turns["analyze frames/s"].append((how, n / analyze(
+            os.path.join(workdir, f"sharded_turn{i}.db"), on)))
+        turns["refine s"].append((how, refined(on)[1]))
+    for what, runs in turns.items():
+        print(f"  {what} (one device, split over {len(devices)} shards, in "
+              f"turns): " + ", ".join(f"{how} {value:.4f}"
+                                      for how, value in runs)
+              + f" on {smi}")
+    return launches
+
+
 def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     if not torch.cuda.is_available():
@@ -1886,6 +2280,8 @@ def main() -> None:
                                                track, refine, workdir, smi)
         print("segments phase (track_segments and refine_segments):")
         k1_segments, seg_err = segments_phase(device, track, refine, smi)
+        print("sharded phase (analyze and refine split over devices):")
+        lk_sharded = sharded_phase(device, frames, analyze_db, refine, smi)
 
     (k2_ms, k2_plain), (k3_ms, k3_plain) = lk_times
     (k2_bound_ms, k2_by), (k3_bound_ms, k3_by) = lk_bounds
@@ -1893,8 +2289,9 @@ def main() -> None:
         "loss1_ftol1e-05_f0_pp0"]
     # No single PyTorch call computes any of the three (library_ms null).
     # ``launches`` counts the main path's runs (analyze; tracking and the pin
-    # drags), ``surface_launches`` the surface phase's gated runs and
-    # ``segments_launches`` the gated ``track_segments`` run.
+    # drags), ``surface_launches`` the surface phase's gated runs,
+    # ``segments_launches`` the gated ``track_segments`` run and
+    # ``sharded_launches`` the gated split analyze.
     kernels = [{
         "name": "pnp_lm",
         "route": "cuda",
@@ -1916,6 +2313,7 @@ def main() -> None:
         "replaces": "polychase_tpu/kernels/lk_pallas.py:337",
         "launches": lk_launches[0],
         "surface_launches": lk_surface[0],
+        "sharded_launches": lk_sharded[0],
         "max_abs_err": patch_err,
         "ms": k2_ms,
         "plain_ms": k2_plain,
@@ -1929,6 +2327,7 @@ def main() -> None:
         "replaces": "polychase_tpu/kernels/lk_pallas.py:496",
         "launches": lk_launches[1],
         "surface_launches": lk_surface[1],
+        "sharded_launches": lk_sharded[1],
         "max_abs_err": pos_err,
         "ms": k3_ms,
         "plain_ms": k3_plain,

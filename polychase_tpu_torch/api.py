@@ -11,7 +11,11 @@ Every free function takes a trailing keyword-only ``device``.  ``None``, the
 default, means the card (``backend.surface_device``): the addon passes no
 device and gets the card, and a process without one gets a
 :class:`CppException`, never a run on the CPU.  The tests pass
-``device="cpu"``, which runs the kernels' plain torch versions.
+``device="cpu"``, which runs the kernels' plain torch versions.  As the
+JAX package shards them over ``jax.devices()``,
+``generate_optical_flow_database`` and ``refine_trajectory`` take every
+visible card for ``None`` (``backend.surface_devices``; one card is a list
+of one, the single-device path) and accept a sequence of devices.
 
 The reference's multi-device extensions are here too: ``device_count``,
 and ``refine_segments`` and ``track_segments``, which solve independent
@@ -625,8 +629,8 @@ def generate_optical_flow_database(
 ) -> None:
     """Analyze a clip into the flow DB at ``database_path``
     (cpp/opticalflow.cc:209-321); on a card each LK level of a solve
-    launches K2 and K3."""
-    device = surface_device(device)
+    launches K2 and K3 (on each card of its split, with several)."""
+    device = surface_devices(device)
     _opticalflow.generate_optical_flow_database(
         video_info._to_engine(),
         frame_accessor_function,
@@ -702,8 +706,9 @@ def refine_trajectory(
     *,
     device=None,
 ) -> None:
-    """Bundle-adjust ``camera_trajectory`` in place (cpp/refiner.cc)."""
-    device = surface_device(device)
+    """Bundle-adjust ``camera_trajectory`` in place (cpp/refiner.cc); with
+    several devices its normal equations and prim refresh split over them."""
+    device = surface_devices(device)
 
     def cb(u: _refiner.RefineTrajectoryUpdate) -> bool:
         if callback is None:
@@ -723,7 +728,7 @@ def refine_trajectory(
         database_path,
         camera_trajectory._traj,
         np.asarray(model_matrix, np.float32).reshape(4, 4),
-        mesh._to_engine(device),
+        _first_mesh(mesh, device),
         optimize_focal_length,
         optimize_principal_point,
         cb,
@@ -743,7 +748,8 @@ def device_count() -> int:
     return int(torch.cuda.device_count())
 
 
-def _segment_mesh(mesh: AcceleratedMesh, devices) -> _geometry.Mesh:
+def _first_mesh(mesh: AcceleratedMesh, devices) -> _geometry.Mesh:
+    """The engine mesh on the (first) device of ``surface_devices``."""
     first = devices[0] if isinstance(devices, list) else devices
     return mesh._to_engine(first)
 
@@ -773,7 +779,7 @@ def refine_segments(
         database_path,
         [ct._traj for ct in camera_trajectories],
         np.asarray(model_matrix, np.float32).reshape(4, 4),
-        _segment_mesh(mesh, devices),
+        _first_mesh(mesh, devices),
         optimize_focal_length,
         optimize_principal_point,
         (bundle_opts or BundleOptions())._to_engine(),
@@ -812,7 +818,7 @@ def track_segments(
         database_path,
         [ct._traj for ct in camera_trajectories],
         np.asarray(model_matrix, np.float32).reshape(4, 4),
-        _segment_mesh(mesh, devices),
+        _first_mesh(mesh, devices),
         optimize_focal_length,
         optimize_principal_point,
         bundle_opts._to_engine(),

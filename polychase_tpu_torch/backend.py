@@ -50,10 +50,11 @@ def surface_device(device=None) -> torch.device:
 
 
 def surface_devices(device=None):
-    """The devices of a segment-parallel entry point: ``None`` means every
-    visible card, and without one this raises ``RuntimeError``; else one
-    device or a sequence of them, each as :func:`surface_device` gives it.
-    Returns one device or a list."""
+    """The devices of an entry point that splits its work over several
+    (analyze, refine, the segment-parallel calls): ``None`` means every
+    visible card (one card is a list of one), and without one this raises
+    ``RuntimeError``; else one device or a sequence of them, each as
+    :func:`surface_device` gives it.  Returns one device or a list."""
     if device is None:
         require_cuda()
         return [torch.device("cuda", i)

@@ -6,8 +6,9 @@ cpp/examples/generate_database.cc:29-71)::
     python -m polychase_tpu_torch.cli.generate_database \
         --images-dir frames/ --database-path flow.db
 
-Analyze runs on the card (``--device cuda``, the default) and fails
-without one; ``--device cpu`` runs the kernels' plain torch versions.
+Analyze runs on every visible card by default, its LK solves split over
+them, and fails without one; ``--device`` names one device (``cuda:1``;
+``cpu`` runs the kernels' plain torch versions).
 Frames are read with Pillow.
 """
 
@@ -41,13 +42,14 @@ def main(argv=None) -> int:
     parser.add_argument("--min-distance", type=float, default=5.0)
     parser.add_argument("--max-corners", type=int, default=0)
     parser.add_argument("--write-images", action="store_true")
-    parser.add_argument("--device", default="cuda",
-                        help="torch device of the run (default: cuda)")
+    parser.add_argument("--device", default=None,
+                        help="torch device of the run (default: every "
+                        "visible card)")
     args = parser.parse_args(argv)
-    from ..backend import surface_device
+    from ..backend import surface_devices
 
     try:
-        device = surface_device(args.device)
+        device = surface_devices(args.device)
     except RuntimeError as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 1

@@ -15,16 +15,21 @@ semantics (``video/src/lkpyramid.cpp``):
   iteration over every (target, feature) pair is :func:`iter_level`.  These
   two are the plain torch versions of the hand-written kernels K2
   (``kernels/lk_prep.py``) and K3 (``kernels/lk_iter.py``);
-- the coarse-to-fine chain is a host loop over levels.
+- the coarse-to-fine chain is a host loop over levels;
+- given several devices, a solve splits its features (from
+  ``FEAT_SHARD_MIN`` of them) or else its targets over them
+  (``parallel.analyze``), as the reference's mesh routes do
+  (``polychase_tpu/engine/lk.py:865-924``, ``:1111-1164``).
 
 Filters are sums of shifted slices in tap order, as the reference writes
 them, so the CPU arm agrees with it to float rounding.  The reference's TPU
 devices (shape buckets, 4/8 target padding, the compressed result transfer,
-bf16 storage, the chained fan, mesh sharding) are not ported.
+bf16 storage, the chained fan) are not ported.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -32,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..backend import HostCopy, as_device
+from ..parallel import resolve_devices
 
 
 class LKOptions(NamedTuple):
@@ -401,6 +407,22 @@ def _lk_all_levels_multi(prev_levels, next_images, pts, eps2: float,
 # ---------------------------------------------------------------------------
 
 GROUP_SORT_MIN = 128  # below this many features the order cannot matter
+# Features from which a solve given several devices splits its features
+# over them, not its (at most 8) targets: the JAX package's default
+# (``_feat_shard_min``, polychase_tpu/engine/lk.py:858-862), not yet
+# measured on the card.
+FEAT_SHARD_MIN = 32768
+
+
+def split_route(n: int, T: int, n_devices: int) -> str:
+    """How a solve of ``n`` features into ``T`` targets splits over
+    ``n_devices``: ``"features"``, ``"targets"``, or ``""`` for the
+    unsharded solve on the first device."""
+    if n_devices < 2:
+        return ""
+    if n >= FEAT_SHARD_MIN:
+        return "features"
+    return "targets" if T >= 2 else ""
 
 
 def _spatial_sort(pts: np.ndarray):
@@ -440,24 +462,41 @@ def calc_optical_flow_multi_async(
     next_pyrs: List[PyramidCache],
     prev_pts: np.ndarray,
     opts: LKOptions = LKOptions(),
+    *,
+    devices=None,
 ) -> FlowHandle:
     """Queue a multi-target solve on the pyramids' device; nothing blocks.
 
-    The results travel to pinned host buffers behind one event, which
-    :func:`calc_optical_flow_multi_finish` waits on."""
+    ``devices`` (a list whose first is the pyramids' device; default that
+    device alone) splits the solve over several devices by
+    :func:`split_route`; the spatial sort wraps the whole solve.  The
+    results travel from the first device to pinned host buffers behind one
+    event, which :func:`calc_optical_flow_multi_finish` waits on."""
     pts = np.ascontiguousarray(prev_pts, np.float32).reshape(-1, 2)
     n, T = pts.shape[0], len(next_pyrs)
+    dev = prev_pyr.device
+    devices = [dev] if devices is None else resolve_devices(devices)
+    if devices[0] != dev:
+        raise ValueError(f"the pyramids are on {dev}, the first device is "
+                         f"{devices[0]}")
     if n == 0 or T == 0:
         return FlowHandle(T, None)
     levels = min([prev_pyr.num_levels] + [p.num_levels for p in next_pyrs])
     pts, inv = _spatial_sort(pts)
-    dev = prev_pyr.device
     pts_dev = torch.from_numpy(np.ascontiguousarray(pts)).to(
         dev, non_blocking=True)
     stacked = [torch.stack([p.levels[lvl][0] for p in next_pyrs])
                for lvl in range(levels)]
     eps = min(max(opts.term_epsilon, 0.0), 10.0)
-    nxt, status, err = _lk_all_levels_multi(
+    solve = _lk_all_levels_multi
+    route = split_route(n, T, len(devices))
+    if route:
+        from ..parallel import analyze
+
+        solve = functools.partial(
+            analyze.sharded_lk_multi_feat if route == "features"
+            else analyze.sharded_lk_multi, devices)
+    nxt, status, err = solve(
         prev_pyr.levels[:levels], stacked, pts_dev, float(eps * eps),
         float(opts.min_eigen_threshold), win=opts.window_size,
         max_iters=opts.term_max_iters, levels=levels,
@@ -482,19 +521,21 @@ def calc_optical_flow_multi_finish(handle: FlowHandle):
 
 
 def calc_optical_flow_multi(prev_pyr, next_pyrs, prev_pts,
-                            opts: LKOptions = LKOptions()):
+                            opts: LKOptions = LKOptions(), *, devices=None):
     """Track ``prev_pts`` into several target frames in one solve."""
     return calc_optical_flow_multi_finish(
-        calc_optical_flow_multi_async(prev_pyr, next_pyrs, prev_pts, opts)
+        calc_optical_flow_multi_async(prev_pyr, next_pyrs, prev_pts, opts,
+                                      devices=devices)
     )
 
 
 def calc_optical_flow(prev_pyr, next_pyr, prev_pts,
-                      opts: LKOptions = LKOptions()):
-    """Track ``prev_pts`` (N, 2) from prev to next frame.
+                      opts: LKOptions = LKOptions(), *, devices=None):
+    """Track ``prev_pts`` (N, 2) from prev to next frame (``devices`` as
+    for :func:`calc_optical_flow_multi_async`).
 
     Returns ``(next_pts (N, 2) f32, status (N,) bool, err (N,) f32)`` with
     cv::calcOpticalFlowPyrLK conventions."""
     nxt, status, err = calc_optical_flow_multi(
-        prev_pyr, [next_pyr], prev_pts, opts)
+        prev_pyr, [next_pyr], prev_pts, opts, devices=devices)
     return nxt[0], status[0], err[0]

@@ -8,6 +8,12 @@ pattern, writing each pair's surviving flows to the SQLite database.
 - All targets of a source frame are one multi-target solve on the device
   (the reference's per-pair thread pool becomes a batch axis); the solve's
   levels launch K2 and K3 on a CUDA device.
+- Given several devices, each solve is split over them by features or by
+  targets (``engine.lk.split_route``, ``parallel.analyze``), as the
+  reference shards only the LK solve.  GFTT, the pyramids, their LRUs and
+  the DB writes stay on the first device and the host; each solve copies
+  the source levels (and, split by features, every target's levels) to the
+  other devices, and its results come back to the first.
 - Prepared pyramids live in an LRU keyed by frame id (the analogue of the
   reference's 17-frame ring buffer), each frame uploaded once as uint8.
 - A single Python thread keeps the device busy: GFTT for the next
@@ -25,14 +31,14 @@ from __future__ import annotations
 import logging
 import os
 from collections import OrderedDict, deque
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..io.database import Database
 
-from ..backend import as_device
+from ..parallel import resolve_devices
 from .gftt import GFTTOptions, gftt_dispatch, gftt_finish
 from .lk import (
     LKOptions,
@@ -113,7 +119,8 @@ def generate_optical_flow_database(
     *,
     device,
 ) -> None:
-    """Generate keypoints + pairwise flows for a clip on ``device``
+    """Generate keypoints + pairwise flows for a clip on ``device``, one
+    device or a sequence of them (the module docstring)
     (cpp/opticalflow.cc:209-321).
 
     ``write_images`` dumps debug PNGs into a ``frames`` directory beside the
@@ -122,11 +129,11 @@ def generate_optical_flow_database(
     """
     if frame_accessor is None:
         raise ValueError("frame_accessor is required")
-    device = as_device(device)
+    devices = resolve_devices(device)
     db = Database(database_path)
     try:
         _run(db, video_info, frame_accessor, callback, detector_options,
-             flow_options, write_images, database_path, device)
+             flow_options, write_images, database_path, devices)
     finally:
         db.close()
 
@@ -154,7 +161,8 @@ def _run(db: Database, video_info: VideoInfo, frame_accessor: FrameAccessor,
          callback: Optional[ProgressCallback],
          detector_options: GFTTOptions, flow_options: OpticalFlowOptions,
          write_images: bool, database_path: str,
-         device: torch.device) -> None:
+         devices: List[torch.device]) -> None:
+    device = devices[0]
     first = video_info.first_frame
     last = video_info.first_frame + video_info.num_frames  # exclusive
     # Capacity covers the live window [i-8, i+8+LOOKAHEAD], so prefetched
@@ -264,7 +272,7 @@ def _run(db: Database, video_info: VideoInfo, frame_accessor: FrameAccessor,
         _log.debug("frame %d: tracking %d features into %s", frame_id1,
                    features.shape[0], targets)
         handle = calc_optical_flow_multi_async(pyr1, pyrs2, features,
-                                               flow_options)
+                                               flow_options, devices=devices)
         pending_flows.append((frame_id1, targets, handle))
 
         # Queue the detection and pyramids of upcoming source frames and

@@ -28,6 +28,14 @@ The prim refresh casts on the device, or through the host BVH of
 the port's ``native`` for meshes of ``BVH_TRIANGLE_THRESHOLD`` triangles
 or more.
 
+Given several devices, ``refine_trajectory`` takes the reference's
+multi-device path (its ``device_mesh``): the normal equations are built
+with the flow edges split over the devices (``parallel.sharded``) and the
+device prim refresh casts its frames' ray groups split over them
+(``parallel.raycast.split_cast``, where the reference casts each ray as a
+group of one); the host BVH route, the LM driver and the band choice stay
+as they are.
+
 :class:`LockstepLM` is the reference's device-resident LM schedule
 (``lm_chunk_device``) with a leading segment axis: S independent segments
 stacked into one problem of S·F frames, each with its own state vector and
@@ -38,10 +46,9 @@ Not ported, by design: ``POLYCHASE_DEVICE_LM`` and ``POLYCHASE_LM_CHUNK``
 (the reference's chunked replay of that schedule inside
 ``refine_trajectory``, a TPU answer to dispatch cost that its tests hold
 equal to the host driver); the fused ``rebuild_and_try_lm_step`` (one jit
-instead of two; here a plain sequence of calls); the ``device_mesh`` path
-and ``_pad_edges_to`` (the sharded normal equations of a later slice);
-``POLYCHASE_BAND_SOLVE``; and the TPU padding of K, M and E, which is
-layout, not semantics.
+instead of two; here a plain sequence of calls); ``_pad_edges_to`` (TPU
+layout: the edge shards may be uneven); ``POLYCHASE_BAND_SOLVE``; and the
+TPU padding of K, M and E, which is layout, not semantics.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from torch.profiler import record_function
 from ..io.database import Database
 
 from ..backend import HostCopy, as_device, current
+from ..parallel import resolve_devices
 from . import camera as C
 from . import pose as P
 from .geometry import Mesh
@@ -365,12 +373,31 @@ def refresh_prims_and_cost(params, data: RefinerData, mesh: Mesh, model,
 
 def _make_prim_refresher(data: RefinerData, mesh: Mesh, model, model_inv,
                          tri_corners, loss_scale, loss_type: int,
-                         routing: Optional[bool] = None):
+                         routing: Optional[bool] = None, devices=None):
     """``refresh(params) -> (prims, cost)`` on the route the mesh's size
     selects (``_refresh_routing``): the device sweep, or the host BVH with
-    the rays copied to the host and the prims back."""
+    the rays copied to the host and the prims back.  With several
+    ``devices`` the device sweep's ray groups, one a frame, are split over
+    them."""
     if routing is None:
         routing = _refresh_routing(mesh)
+    if not routing and devices is not None and len(devices) > 1:
+        from ..parallel import mesh_on
+        from ..parallel.raycast import split_cast
+
+        meshes = [mesh_on(mesh, dev) for dev in devices]  # once per refine
+
+        def refresh(params):
+            with record_function("refine.raycast"):
+                origin_o, dir_o = _all_rays(params, data, model_inv)
+                hits = split_cast(devices, meshes, origin_o, dir_o,
+                                  check_mask=True)
+                prims = torch.where(hits.valid & data.kp_valid, hits.prim_id,
+                                    _INVALID)
+            cost = total_cost(params, data, prims, tri_corners, model,
+                              model_inv, loss_scale, loss_type=loss_type)
+            return prims, cost
+        return refresh
     if not routing:
         def refresh(params):
             return refresh_prims_and_cost(
@@ -871,13 +898,18 @@ def refine_trajectory(database, traj: CameraTrajectory, model_matrix,
     """Refine a fully filled trajectory segment on ``device``; the refined
     states (CPU tensors) are written into ``traj``, which is returned.
 
-    ``database`` is a :class:`Database` or a path; ``mesh`` must live on
-    ``device``.  Unless ``bundle_opts`` sets ``function_tol``, LM stops at a
-    relative function tolerance of ``POLYCHASE_REFINE_FTOL`` (default 1e-5;
-    0 gives the reference's exits exactly).  ``callback`` receives a
+    ``device`` is one device or a sequence of them.  With several, the
+    normal equations and the device prim refresh are split over them (the
+    module docstring) and everything else runs on the first; one device,
+    or a list of one, is the single-device path.  ``database`` is a
+    :class:`Database` or a path; ``mesh`` must live on the (first) device.
+    Unless ``bundle_opts`` sets ``function_tol``, LM stops at a relative
+    function tolerance of ``POLYCHASE_REFINE_FTOL`` (default 1e-5; 0 gives
+    the reference's exits exactly).  ``callback`` receives a
     :class:`RefineTrajectoryUpdate` after every counted iteration and once
     at the end; returning False cancels."""
-    device = as_device(device)
+    devices = resolve_devices(device)
+    device = devices[0]
     if traj.count <= 2:
         raise ValueError("refinement needs more than 2 frames")
     for fid in range(traj.first_frame, traj.last_frame + 1):
@@ -919,7 +951,19 @@ def refine_trajectory(database, traj: CameraTrajectory, model_matrix,
 
     params = traj_to_params(traj, device=device)
     refresh = _make_prim_refresher(data, mesh, model, model_inv, tri_corners,
-                                   loss_scale, loss_type)
+                                   loss_scale, loss_type, devices=devices)
+    kw = dict(loss_type=loss_type, opt_f=opt_f, opt_pp=opt_pp, ppc=ppc)
+    if len(devices) > 1:
+        from ..parallel.sharded import EdgeShards
+
+        edges = EdgeShards(devices, data, tri_corners, model, model_inv)
+
+        def normal_equations(p, pr):
+            return edges.normal_equations(p, pr, loss_scale, **kw)
+    else:
+        def normal_equations(p, pr):
+            return build_normal_equations(p, data, pr, tri_corners, model,
+                                          model_inv, loss_scale, **kw)
     prims, cost0 = refresh(params)
     cost = float(cost0)
     band = compute_band(data, traj.count, ppc)
@@ -951,12 +995,9 @@ def refine_trajectory(database, traj: CameraTrajectory, model_matrix,
     # scalars; that step's progress report waits for it.
     pending_cost = None
     stagnated = False
-    kw = dict(loss_type=loss_type, opt_f=opt_f, opt_pp=opt_pp, ppc=ppc)
     while stats["iterations"] < opts.max_iterations:
         if rebuild:
-            JtJ, Jtr = build_normal_equations(
-                params, data, prims, tri_corners, model, model_inv,
-                loss_scale, **kw)
+            JtJ, Jtr = normal_equations(params, prims)
         params_new, vec = try_lm_step(
             JtJ, Jtr, params, data, prims, tri_corners, model, model_inv,
             loss_scale, lam, bounds, band=band, **kw)

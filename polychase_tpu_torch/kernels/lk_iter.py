@@ -14,8 +14,9 @@ kernel is compiled with the main path's window (10) fixed, and with the
 window as a runtime value for others.  The plain torch version is
 ``engine.lk.iter_level``.
 
-CPU tensors take the plain version; CUDA tensors launch the kernel, and any
-failure to build or launch it raises.
+CPU tensors take the plain version; CUDA tensors launch the kernel on their
+own card, whatever the current device, and any failure to build or launch
+it raises.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import ctypes
 
 import torch
 
+from ..backend import current
 from ..engine import lk
 from . import build
 from .lk_prep import check_level
@@ -81,13 +83,16 @@ def lk_iter_level(imgs_pad, patches, a11, a12, a22, invd, ok, pts, *,
     err = torch.empty((T, n), dtype=torch.float32, device=dev)
     if T * n:
         fn = load().lib.lk_iter_launch
-        rc = fn(imgs_pad.data_ptr(), patches.data_ptr(), a11.data_ptr(),
-                a12.data_ptr(), a22.data_ptr(), invd.data_ptr(),
-                ok.data_ptr(), pts.data_ptr(), out.data_ptr(),
-                status.data_ptr(), err.data_ptr(), T, n, H + 2 * pad,
-                W + 2 * pad, H, W, win, int(max_iters), float(eps2),
-                int(bool(level_is_zero)),
-                torch.cuda.current_stream(dev).cuda_stream)
+        # The kernel launches on, and sizes its shared memory for, the
+        # current device.
+        with current(dev):
+            rc = fn(imgs_pad.data_ptr(), patches.data_ptr(), a11.data_ptr(),
+                    a12.data_ptr(), a22.data_ptr(), invd.data_ptr(),
+                    ok.data_ptr(), pts.data_ptr(), out.data_ptr(),
+                    status.data_ptr(), err.data_ptr(), T, n, H + 2 * pad,
+                    W + 2 * pad, H, W, win, int(max_iters), float(eps2),
+                    int(bool(level_is_zero)),
+                    torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"lk_iter kernel launch failed: CUDA error {rc}")
         launches += 1

@@ -9,8 +9,9 @@ the normal matrix by shuffle reductions, its gate, invD and ok.  The source pyra
 level per source frame.  The plain torch version is
 ``engine.lk.prep_level``.
 
-CPU tensors take the plain version; CUDA tensors launch the kernel, and any
-failure to build or launch it raises.
+CPU tensors take the plain version; CUDA tensors launch the kernel on their
+own card, whatever the current device, and any failure to build or launch
+it raises.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import ctypes
 
 import torch
 
+from ..backend import current
 from ..engine import lk
 from . import build
 
@@ -76,10 +78,11 @@ def lk_prep_level(img_pad, dx_pad, dy_pad, pts, *, win: int, H: int, W: int,
     ok = torch.empty((n,), dtype=torch.bool, device=dev)
     if n:
         fn = load().lib.lk_prep_launch
-        rc = fn(img_pad.data_ptr(), dx_pad.data_ptr(), dy_pad.data_ptr(),
-                pts.data_ptr(), patches.data_ptr(), vec.data_ptr(),
-                ok.data_ptr(), n, hp, wp, H, W, win, float(min_eig_thr),
-                torch.cuda.current_stream(dev).cuda_stream)
+        with current(dev):  # the kernel launches on the current device
+            rc = fn(img_pad.data_ptr(), dx_pad.data_ptr(), dy_pad.data_ptr(),
+                    pts.data_ptr(), patches.data_ptr(), vec.data_ptr(),
+                    ok.data_ptr(), n, hp, wp, H, W, win, float(min_eig_thr),
+                    torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"lk_prep kernel launch failed: CUDA error {rc}")
         launches += 1

@@ -15,8 +15,9 @@ the cluster.  Solves of at most ``WARP_MAX`` points (pin drags) run in one
 warp whose reductions are shuffles alone.
 
 The device of the tensors chooses the arm: CPU tensors go to the plain torch
-version (``engine.pnp.solve_arrays``), CUDA tensors launch the kernel, and
-any failure to build or launch it raises.
+version (``engine.pnp.solve_arrays``), CUDA tensors launch the kernel on
+their own card, whatever the current device, and any failure to build or
+launch it raises.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..backend import current
 from ..engine import pnp
 from ..engine.levmarq import BundleOptions
 from . import build
@@ -107,9 +109,9 @@ _fits: dict = {}
 
 
 def cluster_fits(n_params: int, loss: int, shape: LaunchShape) -> int:
-    """The largest cluster size up to ``shape.cluster`` that the card can
-    schedule for blocks of this shape (cached)."""
-    key = (n_params, loss, shape)
+    """The largest cluster size up to ``shape.cluster`` that the current
+    card can schedule for blocks of this shape (cached per card)."""
+    key = (torch.cuda.current_device(), n_params, loss, shape)
     if key not in _fits:
         fits = load().lib.pnp_lm_max_cluster(
             n_params, loss, shape.cluster, shape.per_block, int(shape.staged))
@@ -120,9 +122,9 @@ def cluster_fits(n_params: int, loss: int, shape: LaunchShape) -> int:
 
 
 def fitted_shape(S: int, N: int, n_params: int, loss: int) -> LaunchShape:
-    """The launch shape K1 takes on this card: :func:`launch_shape`'s, with
-    the cluster cut to what the card can schedule for the block's shared
-    memory."""
+    """The launch shape K1 takes on the current card: :func:`launch_shape`'s,
+    with the cluster cut to what the card can schedule for the block's
+    shared memory."""
     cap = MAX_CLUSTER
     while True:
         shape = launch_shape(S, N, max_cluster=cap)
@@ -171,24 +173,27 @@ def launch(X, x, weights, mask, params, *, opt_f: bool, opt_pp: bool,
         raise ValueError(f"pnp_lm: the kernel runs on CUDA, not {X.device}")
     S, N = _check(X, x, weights, mask, params, opts)
     n_params = 9 if (opt_f or opt_pp) else 6
-    if shape is None:
-        shape = fitted_shape(S, N, n_params, int(opts.loss_type))
     params = params.to(torch.float32).contiguous()
     out = torch.empty((S, pnp.RESULT_LEN), dtype=torch.float32,
                       device=X.device)
     scale = float(opts.loss_scale)
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    rc = load().lib.pnp_lm_launch(
-        params.data_ptr(), X.data_ptr(), x.data_ptr(), weights.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), S, N, shape.cluster, shape.threads,
-        shape.per_block, int(shape.staged), n_params, int(opts.loss_type),
-        int(bool(opt_f)), int(bool(opt_pp)), int(opts.max_iterations),
-        scale, scale * scale, 1.0 / (scale * scale),
-        float(opts.gradient_tol), float(opts.step_tol),
-        float(opts.initial_lambda), float(opts.min_lambda),
-        float(opts.max_lambda), float(opts.function_tol),
-        _F_LOW_SCALE, _F_HIGH_SCALE, stream,
-    )
+    # The kernel launches on the current device, which also owns the
+    # function attributes it sets and the occupancy it is sized by.
+    with current(X.device):
+        if shape is None:
+            shape = fitted_shape(S, N, n_params, int(opts.loss_type))
+        rc = load().lib.pnp_lm_launch(
+            params.data_ptr(), X.data_ptr(), x.data_ptr(), weights.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), S, N, shape.cluster,
+            shape.threads, shape.per_block, int(shape.staged), n_params,
+            int(opts.loss_type), int(bool(opt_f)), int(bool(opt_pp)),
+            int(opts.max_iterations), scale, scale * scale,
+            1.0 / (scale * scale), float(opts.gradient_tol),
+            float(opts.step_tol), float(opts.initial_lambda),
+            float(opts.min_lambda), float(opts.max_lambda),
+            float(opts.function_tol), _F_LOW_SCALE, _F_HIGH_SCALE, stream,
+        )
     if rc != 0:
         raise RuntimeError(f"pnp_lm kernel launch failed: CUDA error {rc}")
     launches += 1

@@ -1,16 +1,25 @@
-"""Segment-parallel tracking and refine.
+"""Work split over several devices.
 
-Port of the segment half of ``polychase_tpu/parallel``: independent
-keyframe segments stacked on a leading segment axis and solved in lockstep,
-one step of every segment per launch (``tracking.track_segments``,
-``segments.refine_segments``).  The reference's device mesh becomes a list
-of devices: the stack is split into contiguous shards, one per device, each
-driven from the caller's thread (launches on different cards run
-together), and gathered.  Every shard is padded to the whole stack's
-shapes, so a segment's result does not depend on the split.
+Port of ``polychase_tpu/parallel``.  The reference's device mesh becomes a
+list of devices (:func:`resolve_devices`): the split axis is cut into
+contiguous shards, one per device (:func:`shards`), one host thread queues
+every shard's work (launches on different cards run together), and the
+results are gathered, or summed in device order, on the first device, which
+stands in for the reference's ``psum``.  A device may appear more than once,
+so ``["cpu"] * 4`` on the CPU and ``["cuda:0", "cuda:0"]`` on one card run
+the split.
 
-The sharded modules of the reference (``sharded.py``, ``analyze.py``,
-``raycast.py``: one computation spread over a mesh) are not ported here.
+- Segment-parallel (``tracking.track_segments``,
+  ``segments.refine_segments``): independent keyframe segments stacked on a
+  leading segment axis and solved in lockstep, one step of every segment
+  per launch.  Every shard is padded to the whole stack's shapes, so a
+  segment's result does not depend on the split.
+- Sharded (``raycast``, ``sharded``, ``analyze``): one computation spread
+  over the devices: the ray cast over its ray groups, refine's normal
+  equations over the flow edges, analyze's LK solve over its targets or its
+  features.  ``engine.refiner.refine_trajectory`` and
+  ``engine.opticalflow.generate_optical_flow_database`` take them when
+  given several devices.
 """
 
 from __future__ import annotations
@@ -25,11 +34,15 @@ from ..engine.geometry import Mesh
 
 
 def resolve_devices(device) -> List[torch.device]:
-    """One device, or a sequence of them, as a list of devices."""
+    """One device, or a sequence of them, as a list of devices.  A list
+    that mixes the CPU and CUDA devices raises ``ValueError``."""
     if isinstance(device, (list, tuple)):
         if not device:
             raise ValueError("an empty list of devices")
-        return [as_device(d) for d in device]
+        devices = [as_device(d) for d in device]
+        if len({d.type for d in devices}) > 1:
+            raise ValueError(f"a list of devices mixes kinds: {devices}")
+        return devices
     return [as_device(device)]
 
 

@@ -1,0 +1,86 @@
+"""Analyze's multi-target LK solve split over several devices.
+
+Port of ``polychase_tpu/parallel/analyze.py:1-261``.  Every (target,
+feature) pair of a solve is independent, so a solve splits over either
+axis with no reduction:
+
+- :func:`sharded_lk_multi` splits the targets: each device gets its run of
+  the stacked target levels and a copy of the source levels and points;
+- :func:`sharded_lk_multi_feat` splits the features, the axis that grows
+  with resolution: each device gets its run of the points and a copy of the
+  source and of every target level.
+
+Each device runs ``engine.lk._lk_all_levels_multi``, which launches K2 and
+K3 at every level on CUDA tensors and takes their plain versions on CPU
+tensors, so the reference's XLA and Pallas variants are one function here.
+The copies are queued per solve; the results are gathered on the first
+device, in the unsharded call's layout.  Shards are contiguous and may be
+uneven: the reference's padding of T with copies of the source and of N to
+128-lane groups is TPU layout.  The chained fan's sharded phases
+(``sharded_lk_chain_prep``, ``sharded_lk_chain_phase``) are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..backend import current
+from ..engine.lk import Level, _lk_all_levels_multi
+from . import resolve_devices, shards
+
+
+def _levels_on(levels: Sequence[Level], dev) -> list:
+    """Prepared levels copied to ``dev`` (no copy where they lie)."""
+    return [(img.to(dev, non_blocking=True), dx.to(dev, non_blocking=True),
+             dy.to(dev, non_blocking=True), hw) for img, dx, dy, hw in levels]
+
+
+def _gather(outs, first, dim: int):
+    """The shards' (next, status, err) concatenated on ``first``."""
+    return tuple(torch.cat([o[i].to(first, non_blocking=True) for o in outs],
+                           dim=dim) for i in range(3))
+
+
+def sharded_lk_multi(devices, prev_levels: Sequence[Level],
+                     next_images_stacked: Sequence[torch.Tensor],
+                     pts: torch.Tensor, eps2: float, min_eig_thr: float, *,
+                     win: int, max_iters: int, levels: int):
+    """The targets of ``_lk_all_levels_multi`` split contiguously over
+    ``devices``: ``prev_levels`` per level (padded image, dx, dy, (H, W)),
+    ``next_images_stacked`` per level (T, Hp, Wp), ``pts`` (N, 2).  Returns
+    its ``(next (T, N, 2), status (T, N), err (T, N))`` on the first
+    device."""
+    devices = resolve_devices(devices)
+    T = int(next_images_stacked[0].shape[0])
+    outs = []
+    for dev, (lo, hi) in zip(devices, shards(T, len(devices))):
+        prev = _levels_on(prev_levels[:levels], dev)
+        nxt = [s[lo:hi].to(dev, non_blocking=True)
+               for s in next_images_stacked[:levels]]
+        with current(dev):
+            outs.append(_lk_all_levels_multi(
+                prev, nxt, pts.to(dev, non_blocking=True), eps2, min_eig_thr,
+                win=win, max_iters=max_iters, levels=levels))
+    return _gather(outs, devices[0], 0)
+
+
+def sharded_lk_multi_feat(devices, prev_levels: Sequence[Level],
+                          next_images_stacked: Sequence[torch.Tensor],
+                          pts: torch.Tensor, eps2: float, min_eig_thr: float,
+                          *, win: int, max_iters: int, levels: int):
+    """The features of ``_lk_all_levels_multi`` split contiguously over
+    ``devices``; arguments and results as :func:`sharded_lk_multi`'s."""
+    devices = resolve_devices(devices)
+    N = int(pts.shape[0])
+    outs = []
+    for dev, (lo, hi) in zip(devices, shards(N, len(devices))):
+        prev = _levels_on(prev_levels[:levels], dev)
+        nxt = [s.to(dev, non_blocking=True)
+               for s in next_images_stacked[:levels]]
+        with current(dev):
+            outs.append(_lk_all_levels_multi(
+                prev, nxt, pts[lo:hi].to(dev, non_blocking=True), eps2,
+                min_eig_thr, win=win, max_iters=max_iters, levels=levels))
+    return _gather(outs, devices[0], 1)

@@ -21,8 +21,10 @@ Message protocols (what ``try_pop`` yields) mirror the reference's
 A worker that fails puts its exception on the queue, then ``True``.
 
 Each constructor takes a trailing keyword-only ``device``; ``None`` means
-the card (every visible card for ``RefineSegmentsThread``).  It is
-resolved on the caller's thread, to an indexed device (a fresh thread's
+the card (every visible card for ``OpticalFlowThread``, ``RefinerThread``
+and ``RefineSegmentsThread``, which split their work over a device list,
+as the ``api`` functions they run do).  It is resolved on the caller's
+thread, to an indexed device (a fresh thread's
 current CUDA device is 0), and the worker runs with that device (the
 first of them) current.  Without a card the worker's first message is the
 :class:`~polychase_tpu_torch.api.CppException`, then ``True``.
@@ -153,6 +155,7 @@ class OpticalFlowThread(_WorkerBase):
     """Analyze-video worker (cpp/opticalflow_thread.h:81-205)."""
 
     PROVIDE_TIMEOUT_S = 10.0
+    _resolve = staticmethod(surface_devices)
 
     def __init__(
         self,
@@ -275,6 +278,8 @@ class RefinerThread(_WorkerBase):
     The trajectory object is refined **in place**; read it after the
     ``True`` done message (matching the reference's shared_ptr).
     """
+
+    _resolve = staticmethod(surface_devices)
 
     def __init__(
         self,

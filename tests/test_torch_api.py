@@ -13,7 +13,10 @@
   route leaves the reference's answer by more than 1e-4 at 4 to 8 pins
   (``tests/pin_route_scan.py``).
 - Without a card, every free function called with no ``device`` raises
-  ``CppException``, and nothing runs on the CPU.
+  ``CppException``, and nothing runs on the CPU.  With two cards visible,
+  no ``device`` is both cards for analyze and refine and the first for
+  tracking and pin drags; a device list (``["cpu"] * 2``) gives analyze's
+  one-device DB to the bit and refine's poses within 2e-3 rad and 4e-3.
 - The extensions: the facade's ``__all__`` equals the JAX package's,
   ``device_count()`` is 0 without a card, and ``track_segments`` /
   ``refine_segments`` with ``device="cpu"`` give the engine calls'
@@ -361,6 +364,135 @@ def test_free_functions_refuse_without_card(tmp_path, monkeypatch):
         with pytest.raises(pc.CppException, match="no CUDA device"):
             call()
     assert ran == []
+
+
+class _Recorded(RuntimeError):
+    pass
+
+
+@pytest.mark.parametrize("fn", ["find_transformation",
+                                "generate_optical_flow_database",
+                                "refine_trajectory", "track_sequence"])
+def test_none_is_every_card_for_analyze_and_refine(tmp_path, monkeypatch,
+                                                    fn):
+    """With two cards visible and no device: analyze and refine get every
+    card, as the JAX package shards them over ``jax.devices()``; tracking
+    and pin drags keep one (the engine calls are stubbed)."""
+    from polychase_tpu_torch.engine import (
+        opticalflow, pinmode, refiner, tracker,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    seen = {}
+
+    def record(name):
+        def stub(*a, device, **k):
+            seen[name] = device
+            raise _Recorded
+        return stub
+
+    for eng, name in ((pinmode, "find_transformation"),
+                      (tracker, "track_sequence"),
+                      (refiner, "refine_trajectory"),
+                      (opticalflow, "generate_optical_flow_database")):
+        monkeypatch.setattr(eng, name, record(name))
+    monkeypatch.setattr(pc.AcceleratedMesh, "_to_engine",
+                        lambda self, device: seen.setdefault("mesh", device))
+    accel = pc.AcceleratedMesh(np.zeros((3, 3), np.float32),
+                               np.array([[0, 1, 2]], np.uint32))
+    scene = _scene(pc, np.eye(4, dtype=np.float32))
+    db = str(tmp_path / "flow.db")
+    calls = {
+        "find_transformation": lambda: pc.find_transformation(
+            np.zeros((TPM.HOST_PIN_MAX + 1, 3), np.float32), scene, scene,
+            pc.PinUpdate(0, [1.0, 2.0]), pc.TransformationType.Camera),
+        "generate_optical_flow_database":
+            lambda: pc.generate_optical_flow_database(
+                pc.VideoInfo(16, 16, 0, 2), lambda f: None, None, db),
+        "track_sequence": lambda: pc.track_sequence(
+            db, 0, 2, scene, accel, None),
+        "refine_trajectory": lambda: pc.refine_trajectory(
+            db, pc.CameraTrajectory(0, 3), np.eye(4), accel, False, False,
+            None),
+    }
+    with pytest.raises(pc.CppException):
+        calls[fn]()
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    if fn in ("generate_optical_flow_database", "refine_trajectory"):
+        assert seen[fn] == cards
+    else:
+        assert seen[fn] == cards[0]
+    if "mesh" in seen:
+        assert seen["mesh"] == cards[0]  # the mesh lives on the first card
+
+
+def _analyze_db(path):
+    """An analyze DB's keypoints and flows, for equality checks."""
+    db = pc.Database(path)
+    try:
+        return [(db.read_keypoints(f), [
+            (g, db.read_image_pair_flow(f, g).src_kps_indices,
+             db.read_image_pair_flow(f, g).tgt_kps)
+            for g in db.find_optical_flows_from_image(f)])
+            for f in range(db.get_max_image_id_with_keypoints() + 1)]
+    finally:
+        db.close()
+
+
+def _assert_same(a, b):
+    assert len(a) == len(b)
+    for (ka, fa), (kb, fb) in zip(a, b):
+        np.testing.assert_array_equal(ka, kb)
+        assert [g for g, _, _ in fa] == [g for g, _, _ in fb]
+        for x, y in zip(fa, fb):
+            np.testing.assert_array_equal(x[1], y[1])
+            np.testing.assert_array_equal(x[2], y[2])
+
+
+@pytest.mark.parametrize("fn", ["generate_optical_flow_database",
+                                "refine_trajectory"])
+def test_analyze_and_refine_on_a_device_list(tmp_path, fn):
+    """A list of one device gives the one-device result to the bit; a
+    device list, ``["cpu"] * 2``, splits the work and gives the one-device
+    results: analyze's DB to the bit, refine's poses within 2e-3 rad and
+    4e-3 (test_sharded.py's bars)."""
+    lists = {"one": CPU, "list of one": [CPU], "two": [CPU, CPU]}
+    if fn == "generate_optical_flow_database":
+        from polychase_tpu_torch.synthetic import panning_clip
+
+        frames = panning_clip(np.random.default_rng(0), 4, 160, 120, (3, 2))
+        info = pc.VideoInfo(160, 120, 0, 4)
+        dbs = {}
+        for name, device in lists.items():
+            pc.generate_optical_flow_database(
+                info, lambda f: frames[f], None, str(tmp_path / name),
+                device=device)
+            dbs[name] = _analyze_db(str(tmp_path / name))
+        assert len(dbs["one"]) == 4
+        _assert_same(dbs["list of one"], dbs["one"])
+        _assert_same(dbs["two"], dbs["one"])
+        return
+    db = str(tmp_path / "flow.db")
+    v, t, poses, intr = segment_scene(db)
+    opts = pc.BundleOptions()
+    opts.max_iterations = 8
+    mesh = pc.AcceleratedMesh(v, t)
+    out = {}
+    for name, device in lists.items():
+        out[name] = segment_trajectories(poses, intr, filled=True)[0]
+        pc.refine_trajectory(db, out[name], np.eye(4), mesh, False, False,
+                             None, opts, device=device)
+    one = out["one"]
+    np.testing.assert_array_equal(_traj_poses(out["list of one"]),
+                                  _traj_poses(one))
+    for f in range(one.first_frame(), one.last_frame() + 1):
+        a, b = one.get(f).pose, out["two"].get(f).pose
+        assert np.linalg.norm(a.t - b.t) < 4e-3
+        assert 2 * np.arccos(min(abs(float(np.dot(a.q, b.q))), 1.0)) < 2e-3
+    assert np.abs(_traj_poses(one) - _traj_poses(
+        segment_trajectories(poses, intr, filled=True)[0])).max() > 1e-4
 
 
 # ---------------------------------------------------------------------------

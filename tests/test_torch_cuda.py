@@ -1,8 +1,10 @@
 """K1 (csrc/pnp_lm.cu), K2 (csrc/lk_prep.cu) and K3 (csrc/lk_iter.cu)
 against their plain torch versions on a CUDA card, refine and pin mode
 on the card against the same work on the CPU, the segment-parallel track
-(one K1 launch a step for every segment), and the ``polychase_core``
-threads with no device argument on the card.
+(one K1 launch a step for every segment), the sharded analyze and refine
+(two shards on one card, or every card), the three kernels on a card other
+than the current one, and the ``polychase_core`` threads with no device
+argument on the card.
 
 These tests need the card and skip elsewhere.  The file imports no jax, so
 it runs on a machine without it:
@@ -582,9 +584,10 @@ def test_tracker_thread_on_card(card, tmp_path):
 
 
 def test_opticalflow_thread_on_card(card, tmp_path):
-    """An OpticalFlowThread built with no device analyzes on the card: K2
-    and K3 launch once per level of every solve, and the DB equals the
-    direct analyze's on the card to the bit."""
+    """An OpticalFlowThread built with no device analyzes on every card: K2
+    and K3 launch once per level of every solve's every shard (one shard a
+    solve on one card), and the DB equals the direct analyze's, also on
+    every card, to the bit."""
     import polychase_tpu_torch.polychase_core as pc
     from polychase_tpu_torch.io.database import Database
 
@@ -596,9 +599,12 @@ def test_opticalflow_thread_on_card(card, tmp_path):
                                       direct)
     before = (lk_prep.launches, lk_iter.launches)
     progress = drain(pc.OpticalFlowThread(info, threaded), frames)
-    levels = lk.num_pyramid_levels(240, 320, lk.LKOptions())
+    # 320x240 frames keep fewer than FEAT_SHARD_MIN corners: several cards
+    # split each solve by targets.
+    want = _analyze_launches(n, 240, 320, torch.cuda.device_count(),
+                             "targets")
     assert (lk_prep.launches - before[0], lk_iter.launches - before[1]) == (
-        levels * n, levels * n)
+        want, want)
     assert progress[-1] == (1.0, "Done")
     a, b = Database(direct), Database(threaded)
     try:
@@ -614,3 +620,162 @@ def test_opticalflow_thread_on_card(card, tmp_path):
     finally:
         a.close()
         b.close()
+
+
+# ---------------------------------------------------------------------------
+# The sharded paths, and the kernels on a card other than the current one
+# ---------------------------------------------------------------------------
+
+
+def _analyze_launches(n, height, width, n_devices, route):
+    """K2's (and K3's) launches in an n-frame analyze over ``n_devices``,
+    counted without the code under test: once per level of every shard of
+    every solve, a solve split by ``route`` into one shard a device (by
+    targets, one a target where there are fewer targets than devices)."""
+    from polychase_tpu_torch.engine.opticalflow import IMAGE_SKIPS
+
+    levels = lk.num_pyramid_levels(height, width, lk.LKOptions())
+    total = 0
+    for f in range(n):
+        T = sum(0 <= f + s < n for s in IMAGE_SKIPS)
+        if T:
+            total += (1 if n_devices == 1 else n_devices
+                      if route == "features" else min(T, n_devices))
+    return levels * total
+
+
+def _split_devices():
+    """Every card, or two shards on the one card there is."""
+    n = torch.cuda.device_count()
+    return ([torch.device("cuda", i) for i in range(n)] if n > 1
+            else [torch.device("cuda", 0)] * 2)
+
+
+@pytest.mark.parametrize("route", ["targets", "features"])
+def test_sharded_analyze_matches_one_card(card, tmp_path, monkeypatch,
+                                          route):
+    """Analyze split over ``_split_devices()`` (by targets, or by features
+    with ``FEAT_SHARD_MIN`` lowered to 1) against the same on card 0: the
+    same keypoints and pairs, the same kept flows within 1e-4 px (every
+    pair's solve is independent), K2 and K3 once per level of every shard."""
+    from polychase_tpu_torch.engine.opticalflow import (
+        VideoInfo, generate_optical_flow_database,
+    )
+    from polychase_tpu_torch.io.database import Database
+
+    if route == "features":
+        monkeypatch.setattr(lk, "FEAT_SHARD_MIN", 1)
+    n, devices = 6, _split_devices()
+    frames = panning_clip(np.random.default_rng(0), n, 320, 240, (3, 2))
+    info = VideoInfo(320, 240, 0, n)
+    one, split = str(tmp_path / "one.db"), str(tmp_path / "split.db")
+    generate_optical_flow_database(info, lambda f: frames[f], None, one,
+                                   device="cuda:0")
+    before = (lk_prep.launches, lk_iter.launches)
+    generate_optical_flow_database(info, lambda f: frames[f], None, split,
+                                   device=devices)
+    want = _analyze_launches(n, 240, 320, len(devices), route)
+    assert want > lk.num_pyramid_levels(240, 320, OPTS) * n
+    assert (lk_prep.launches - before[0], lk_iter.launches - before[1]) == (
+        want, want)
+    a, b = Database(one), Database(split)
+    try:
+        for f in range(n):
+            np.testing.assert_array_equal(a.read_keypoints(f),
+                                          b.read_keypoints(f))
+            pairs = a.find_optical_flows_from_image(f)
+            assert pairs == b.find_optical_flows_from_image(f)
+            for g in pairs:
+                fa, fb = a.read_image_pair_flow(f, g), b.read_image_pair_flow(
+                    f, g)
+                np.testing.assert_array_equal(fa.src_kps_indices,
+                                              fb.src_kps_indices)
+                np.testing.assert_allclose(fa.tgt_kps, fb.tgt_kps, rtol=0,
+                                           atol=1e-4)
+    finally:
+        a.close()
+        b.close()
+
+
+def test_refine_on_every_card(card, tmp_path):
+    """A 30-frame refine split over ``_split_devices()`` against the same
+    refine on card 0: the cost falls, the anchors keep their bits, every
+    pose within 2e-3 rad and 4e-3 (tests/test_sharded.py's bars)."""
+    from polychase_tpu_torch.engine.camera import OPENCV, Intrinsics
+    from polychase_tpu_torch.engine.geometry import Mesh
+    from polychase_tpu_torch.engine.levmarq import CAUCHY
+    from polychase_tpu_torch.engine.refiner import refine_trajectory
+    from polychase_tpu_torch.synthetic import (
+        build_flow_db, noisy_trajectory, orbit_poses, uv_sphere,
+    )
+
+    poses = orbit_poses(30)
+    db = str(tmp_path / "flow.db")
+    build_flow_db(db, Mesh.create(*uv_sphere(24, 32), device="cpu"), 1800.0,
+                  1920, 1080, poses, np.random.default_rng(2), 128, 0.3)
+    c0 = torch.device("cuda", 0)
+    mesh = Mesh.create(*uv_sphere(24, 32), device=c0)
+    intr = Intrinsics.create(1800, 1800, 960, 540, 1, 1920, 1080, OPENCV,
+                             device=c0)
+    out = []
+    for device in (c0, _split_devices()):
+        traj = noisy_trajectory(poses, intr, np.random.default_rng(3))
+        start = [traj.get(i).pose for i in (0, len(poses) - 1)]
+        ups = []
+        refine_trajectory(db, traj, np.eye(4, dtype=np.float32), mesh,
+                          optimize_focal_length=True,
+                          callback=lambda u: ups.append(u) or True,
+                          bundle_opts=BundleOptions(loss_type=CAUCHY,
+                                                    max_iterations=30),
+                          device=device)
+        assert float(ups[-1].stats.cost) < float(ups[-1].stats.initial_cost)
+        for i, p in zip((0, len(poses) - 1), start):
+            torch.testing.assert_close(traj.get(i).pose.t, p.t, rtol=0, atol=0)
+            torch.testing.assert_close(traj.get(i).pose.q, p.q, rtol=0, atol=0)
+        out.append(traj)
+    for i in range(len(poses)):
+        a, b = out[0].get(i).pose, out[1].get(i).pose
+        assert float(torch.linalg.vector_norm(a.t - b.t)) < 4e-3
+        dq = min(abs(float(torch.dot(a.q, b.q))), 1.0)
+        assert 2 * np.arccos(dq) < 2e-3
+
+
+def test_kernels_launch_on_their_tensors_card(card):
+    """K1, K2 and K3 on card 1's tensors, launched while card 0 is current,
+    equal the same calls on card 0 to the bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    k1 = _to([_scene(4096, s) for s in range(2)], c0)
+    kw = dict(opt_f=False, opt_pp=False,
+              opts=BundleOptions(max_iterations=50, loss_type=1,
+                                 function_tol=1e-5))
+    frames = panning_clip(np.random.default_rng(0), 3, 640, 480)
+    pts, _ = good_features_to_track(frames[1], device=c0)
+    src = lk.prepare_pyramid(frames[1], OPTS, device=c0)
+    tgts = [lk.prepare_pyramid(f, OPTS, device=c0) for f in (frames[0],
+                                                            frames[2])]
+    img, dx, dy, (H, W) = src.levels[0]
+    imgs = torch.stack([t.levels[0][0] for t in tgts])
+    pts = torch.as_tensor(pts, device=c0)
+    guess = pts.expand(2, *pts.shape).contiguous()
+    pkw = dict(win=WIN, H=H, W=W, min_eig_thr=OPTS.min_eigen_threshold)
+    ikw = dict(win=WIN, H=H, W=W, max_iters=OPTS.term_max_iters,
+               eps2=OPTS.term_epsilon ** 2, level_is_zero=True)
+
+    def calls(dev):
+        on = [a.to(dev) for a in k1]
+        prep = lk_prep.lk_prep_level(img.to(dev), dx.to(dev), dy.to(dev),
+                                     pts.to(dev), **pkw)
+        it = lk_iter.lk_iter_level(imgs.to(dev), *prep, guess.to(dev), **ikw)
+        return [pnp_lm.solve_arrays_lm(*on, **kw), *prep, *it]
+
+    with torch.cuda.device(0):
+        before = (pnp_lm.launches, lk_prep.launches, lk_iter.launches)
+        ref, got = calls(c0), calls(c1)
+        assert (pnp_lm.launches, lk_prep.launches, lk_iter.launches) == tuple(
+            b + 2 for b in before)
+        torch.cuda.synchronize(c1)
+    for a, b in zip(got, ref):
+        assert a.device == c1
+        torch.testing.assert_close(a.cpu(), b.cpu(), rtol=0, atol=0)

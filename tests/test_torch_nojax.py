@@ -1,7 +1,8 @@
 """The port runs with jax and the JAX package unimportable: a tiny track, a
 tiny analyze, a tiny refine followed by a pin drag, the tracker and
 optical-flow threads of its ``polychase_core``, and the segment-parallel
-track and refine (the refine through ``RefineSegmentsThread``), each in a
+track and refine (the refine through ``RefineSegmentsThread``) with the
+sharded modules and a refine split over two CPU devices, each in a
 fresh process whose import system refuses ``jax``, ``jaxlib``,
 ``polychase_tpu`` and every ``polychase_tpu.*`` module
 (``polychase_tpu_torch`` is another top-level name and stays
@@ -259,7 +260,10 @@ SEGMENTS = REFUSE_JAX + textwrap.dedent(
 
     import polychase_tpu_torch.polychase_core as pc
     from polychase_tpu_torch.engine.geometry import Mesh
+    from polychase_tpu_torch.parallel.analyze import sharded_lk_multi_feat
+    from polychase_tpu_torch.parallel.raycast import sharded_raycast_flat
     from polychase_tpu_torch.parallel.segments import refine_segments
+    from polychase_tpu_torch.parallel.sharded import sharded_normal_equations
     from polychase_tpu_torch.parallel.tracking import track_segments
     from polychase_tpu_torch.runtime.threads import RefineSegmentsThread
     from polychase_tpu_torch.synthetic import (
@@ -267,7 +271,9 @@ SEGMENTS = REFUSE_JAX + textwrap.dedent(
     )
 
     assert pc.RefineSegmentsThread is RefineSegmentsThread
-    assert callable(refine_segments) and callable(track_segments)
+    assert all(callable(f) for f in (
+        refine_segments, track_segments, sharded_lk_multi_feat,
+        sharded_raycast_flat, sharded_normal_equations))
     verts, tris = uv_sphere(12, 16)
     poses = orbit_poses(10)
     intr = pc.CameraIntrinsics(600, 600, 320, 240, 1, 640, 480,
@@ -288,6 +294,9 @@ SEGMENTS = REFUSE_JAX + textwrap.dedent(
         counts = pc.track_segments(db, tracked, np.eye(4), mesh,
                                    device="cpu")
         refined = [seeded(0, 4, True), seeded(5, 9, True)]
+        split = seeded(0, 9, True)
+        pc.refine_trajectory(db, split, np.eye(4), mesh, False, False, None,
+                             device=["cpu"] * 2)
         thread = RefineSegmentsThread(db, refined, np.eye(4), mesh, False,
                                       False, pc.BundleOptions(),
                                       device="cpu")
@@ -306,7 +315,7 @@ SEGMENTS = REFUSE_JAX + textwrap.dedent(
         for f in range(traj.first_frame(), traj.last_frame() + 1):
             assert np.linalg.norm(traj.get(f).pose.t - poses[f][1]) < 5e-3
     assert [m.message for m in msgs] == ["Refining 2 segments in parallel"]
-    for traj in refined:
+    for traj in refined + [split]:
         for f in range(traj.first_frame(), traj.last_frame() + 1):
             assert np.linalg.norm(traj.get(f).pose.t - poses[f][1]) < 5e-3
     assert_nothing_leaked()

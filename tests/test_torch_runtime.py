@@ -13,6 +13,9 @@ held against the JAX facade's free function on the same seeded inputs:
   JAX refine, ``test_api.py``'s 2.5e-3 to the truth, anchors to the bit;
 - ``RefineSegmentsThread``: its one progress message, then ``True``, and
   the trajectories equal to ``pc.refine_segments``'s within 1e-6;
+- ``OpticalFlowThread`` and ``RefinerThread`` on a device list
+  (``["cpu"] * 2``): the one-device thread's DB to the bit, its refined
+  poses within 2e-3 rad and 4e-3;
 - ``OpticalFlowThread``: ``test_torch_opticalflow.py``'s LK bounds against
   the JAX analyze; through a jittery provider and through the 17-slot ring
   (26 frames), the DB equal to the port's direct analyze, each frame
@@ -145,6 +148,44 @@ def test_refiner_thread(tmp_path, rng):
         assert np.linalg.norm(got.t - np.asarray(poses[i].t)) < REFINE_T_GT
         np.testing.assert_allclose(got.t, ref.t, atol=REFINE_ATOL)
         np.testing.assert_allclose(got.q, ref.q, atol=REFINE_ATOL)
+
+
+@pytest.mark.parametrize("thread", ["OpticalFlowThread", "RefinerThread"])
+def test_threads_split_over_a_device_list(tmp_path, thread):
+    """An ``OpticalFlowThread`` and a ``RefinerThread`` on ``["cpu"] * 2``
+    against the same thread on one device: the analyze DB equal to the bit,
+    the refined poses within 2e-3 rad and 4e-3 (test_sharded.py's bars);
+    on a list of one, the one-device results to the bit."""
+    if thread == "OpticalFlowThread":
+        frames = panning_clip(np.random.default_rng(0), 4, 160, 120, (3, 2))
+        info = pc.VideoInfo(160, 120, 0, 4)
+        for name, device in (("one.db", CPU), ("list.db", [CPU]),
+                             ("two.db", [CPU, CPU])):
+            drain(pc.OpticalFlowThread(info, str(tmp_path / name),
+                                       device=device), frames)
+        for name in ("list.db", "two.db"):
+            _same_db(str(tmp_path / "one.db"), str(tmp_path / name), 4)
+        return
+    db = str(tmp_path / "flow.db")
+    v, t, poses, intr = segment_scene(db)
+    mesh = pc.AcceleratedMesh(v, t)
+    opts = pc.BundleOptions()
+    opts.max_iterations = 8
+    out = []
+    for device in (CPU, [CPU, CPU], [CPU]):
+        traj = segment_trajectories(poses, intr, filled=True)[0]
+        assert drain(pc.RefinerThread(db, traj, EYE, mesh, False, False,
+                                      opts, device=device))
+        out.append(traj)
+    for f in range(out[0].first_frame(), out[0].last_frame() + 1):
+        np.testing.assert_array_equal(out[2].get(f).pose.t,
+                                      out[0].get(f).pose.t)
+        np.testing.assert_array_equal(out[2].get(f).pose.q,
+                                      out[0].get(f).pose.q)
+    for f in range(out[0].first_frame(), out[0].last_frame() + 1):
+        a, b = out[0].get(f).pose, out[1].get(f).pose
+        assert np.linalg.norm(a.t - b.t) < 4e-3
+        assert 2 * np.arccos(min(abs(float(np.dot(a.q, b.q))), 1.0)) < 2e-3
 
 
 def test_refine_segments_thread(tmp_path):
