@@ -6,9 +6,10 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     python3 chip_smoke.py
 
 1. Prints the torch and CUDA versions and the card's name and power limit.
-2. Builds the three kernels with nvcc, one process per source, in
+2. Builds the four kernels with nvcc, one process per source, in
    parallel: K1 the whole-solve LM PnP (csrc/pnp_lm.cu), K2 the LK prep
-   (csrc/lk_prep.cu), K3 the LK iteration (csrc/lk_iter.cu).
+   (csrc/lk_prep.cu), K3 the LK iteration (csrc/lk_iter.cu), K4 GFTT's
+   min-distance suppression (csrc/gftt_suppress.cu).
 3. K1 phase: the kernel against its plain torch version on the card,
    over every loss × function_tol × (opt_f, opt_pp), points behind the
    camera, all points masked, N = 16384 and a batch of 8 solves, and over
@@ -33,8 +34,9 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    clip with default options, a warm-up run, a timed run and a run under
    ``torch.profiler``, each into a fresh DB.  Checks corners on every
    frame, every skip pair, the flows of skips ±1 and ±2 against the ground
-   truth -s·(7, 4), the share of flows kept at ±1, and that K2 and K3
-   launched once per level of every solve; prints analyze frames/s and the
+   truth -s·(7, 4), the share of flows kept at ±1, that K2 and K3
+   launched once per level of every solve and K4 once a frame where the
+   frame size takes GFTT's device route; prints analyze frames/s and the
    device busy share.
 6. Tracking phase: a synthetic 1920×1080, f = 1800, 120-frame orbit clip
    over a 20,224-triangle sphere with 2048 keypoints per frame and 0.3 px
@@ -118,10 +120,32 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     cost within 1e-4 (relative) and every pose within 1e-4 rad and 1e-4.
     Then analyze frames/s and refine seconds, one device against the list,
     in turns (one, list, list, one).
-12. Prints the card, the kernels' JSON line (time, plain time, bound and
+12. Analyze-routes phase: K4 against its plain version on the clip's
+    response maps (every 4th frame) and one 3840×2160 noise frame at
+    d ∈ {1, 2.5, 5, 8} (kept maps equal to the bit, converged, the same
+    rounds), GFTT's device-route corners against its host route's (equal,
+    in the same order), K4's time, plain time and bound, K4 cut at 2
+    rounds a call and resumed from its state against the uncut call, the
+    rounds K4 runs on each clip frame; one frame's GFTT
+    by route at 640×480, 1280×720, 1920×1080 and 3840×2160 in turns (host,
+    device, device, host), and the size from which the device route wins
+    both turns beside ``gftt.DEVICE_SUPPRESS_MIN``; the clip analyzed with
+    ``POLYCHASE_LK_CHAIN=1`` (analyze's gates; the unchained DB's
+    keypoints and pairs; tests/test_opticalflow.py:119-170's gates at
+    skips ±1/±2: each pair's shared flows within a median 0.05 px, > 0.97
+    of the flows kept by both; K2 once per level of every solve, K3 once
+    per level of every phase, K4 once a frame on the device route), and
+    analyze frames/s with GFTT's host route, its device route and chained
+    in turns; the chained analyze split over every card (or two
+    shards on card 0) against the one-device chained DB, with its K2/K3
+    launches; the frames resumed on the card (a fixed point that outlasts
+    ``gftt.MAX_ROUNDS`` rounds) in the whole run.
+13. Prints the card, the kernels' JSON line (time, plain time, bound and
     what sets it, launches on the main path (the analyze, tracking and pin
-    phases) and apart in the surface, segments and sharded phases, largest
-    difference) and, last, ``{"ok": true, ...}``.
+    phases) and apart in the surface, segments, sharded and routes phases,
+    for K4 also the CUDA launches its calls queued and the rounds that did
+    work on the main path's frames, largest difference) and, last,
+    ``{"ok": true, ...}``.
 
 Any failed check raises, so the script exits non-zero without the last line.
 It refuses to run without a CUDA device.
@@ -750,12 +774,13 @@ def analyze_phase(device, frames, workdir):
     """Analyze the panning clip twice (warm-up, timed), each into a fresh
     DB in ``workdir``, and check the timed run against the ground truth; a
     third run under ``torch.profiler`` gives the device busy share.  Returns
-    the K2 and K3 launch counts of the timed run, its frames/s and its DB's
-    path."""
+    the K2, K3 and K4 launch counts of the timed run, its frames/s and its
+    DB's path."""
+    from polychase_tpu_torch.engine import gftt
     from polychase_tpu_torch.engine.opticalflow import (
         VideoInfo, generate_optical_flow_database,
     )
-    from polychase_tpu_torch.kernels import lk_iter, lk_prep
+    from polychase_tpu_torch.kernels import gftt_suppress, lk_iter, lk_prep
 
     n = len(frames)
     height, width = frames[0].shape
@@ -769,29 +794,38 @@ def analyze_phase(device, frames, workdir):
         return time.perf_counter() - t0
 
     warm = run(os.path.join(workdir, "analyze_warm.db"))
-    lk_prep.launches = lk_iter.launches = 0
+    lk_prep.launches = lk_iter.launches = gftt_suppress.launches = 0
+    gftt_suppress.cuda_launches = 0
     path = os.path.join(workdir, "analyze.db")
     seconds = run(path)
-    launches = (lk_prep.launches, lk_iter.launches)
+    launches = (lk_prep.launches, lk_iter.launches, gftt_suppress.launches)
+    k4_queued = gftt_suppress.cuda_launches
     pwall, _, busy_ms, busy = profile_split(
         lambda: run(os.path.join(workdir, "analyze_profiled.db")), device, ())
     print(f"  clip: {width}x{height}")
     fails = analyze_gates(*read_analyze_db(path, n), n)
     levels, solves = analyze_solves(n, height, width)
-    if launches != (levels * solves, levels * solves):
-        fails.append(f"K2/K3 launched {launches} times for {solves} solves "
-                     f"of {levels} levels")
+    # K4 once per detected frame where frames of this size take the device
+    # suppression route.
+    k4 = n if gftt.device_suppress_route(height * width,
+                                         gftt.GFTTOptions()) else 0
+    if launches != (levels * solves, levels * solves, k4):
+        fails.append(f"K2/K3/K4 launched {launches} times for {solves} "
+                     f"solves of {levels} levels and {k4} K4 frames")
     if not busy_ms > 0.0:
         fails.append("the profiler saw no work on the device")
     if fails:
         raise AssertionError("analyze:\n" + "\n".join(fails))
     fps = n / seconds
-    print(f"  K2 / K3 launches on the main path: {launches[0]} / "
-          f"{launches[1]} (= {solves} solves x {levels} levels)")
+    print(f"  K2 / K3 / K4 launches on the main path: {launches[0]} / "
+          f"{launches[1]} (= {solves} solves x {levels} levels) / "
+          f"{launches[2]} (GFTT device route from "
+          f"{gftt.DEVICE_SUPPRESS_MIN} px; {k4_queued} CUDA launches "
+          f"queued by K4)")
     print(f"  analyze: {n} frames in {seconds:.3f} s = {fps:.2f} frames/s "
           f"(warm-up run {warm:.3f} s); profiled run {pwall:.4f} s, device "
           f"time {busy_ms:.3f} ms, busy share {busy:.4f}")
-    return launches, fps, path
+    return launches + (k4_queued,), fps, path
 
 
 # ---------------------------------------------------------------------------
@@ -2227,13 +2261,330 @@ def sharded_phase(device, frames, analyze_db, refine, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Analyze-routes phase: GFTT's device suppression (K4), the chained fan
+# ---------------------------------------------------------------------------
+
+K4_DISCS = (1.0, 2.5, 5.0, 8.0)
+# Frame sizes of the suppression crossover (host route against device).
+ROUTE_SIZES = ((640, 480), (1280, 720), (1920, 1080), (3840, 2160))
+ROUTE_REPS = 5
+# gftt.DEVICE_SUPPRESS_MIN above any frame: every frame on the host route.
+HOST_ONLY = 1 << 62
+CHAIN_MEDIAN_MAX = 0.05   # px, tests/test_opticalflow.py:119-170's gates
+CHAIN_AGREE_MIN = 0.97
+
+
+def k4_bound(h, w, rounds):
+    """K4 on one frame: the quality map read once and the kept map written
+    once; one state compare a pixel and pass for the rounds it ran."""
+    return bound_ms(h * w * (4 + 1), 2.0 * rounds * h * w)
+
+
+def gftt_route_ms(img, device, host: bool, reps=ROUTE_REPS):
+    """Wall ms of one frame's GFTT (dispatch and finish, the frame already
+    on the card) on the host route or the device route."""
+    from polychase_tpu_torch.engine import gftt
+
+    saved = gftt.DEVICE_SUPPRESS_MIN
+    gftt.DEVICE_SUPPRESS_MIN = HOST_ONLY if host else 0
+    try:
+        def run():
+            return gftt.gftt_finish(gftt.gftt_dispatch(img, device=device))
+
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    finally:
+        gftt.DEVICE_SUPPRESS_MIN = saved
+
+
+def chain_gates(kps, flows, ref_kps, ref_flows):
+    """The chained DB against the unchained one: the same keypoints and
+    pairs and, on the pairs of skips ±1 and ±2 (inside LK's basin on this
+    clip; at ±4 and ±8 the unchained solve leaves it and the chained one,
+    seeded, need not), tests/test_opticalflow.py:119-170's gates: each
+    pair's flows kept by both within a median CHAIN_MEDIAN_MAX px, and
+    over those pairs more than CHAIN_AGREE_MIN of the flows kept by both.
+    Returns (agreement, largest median, failures)."""
+    fails = []
+    if not all(np.array_equal(a, b) for a, b in zip(kps, ref_kps)):
+        fails.append("chained keypoints differ from the unchained DB's")
+    if set(flows) != set(ref_flows):
+        fails.append("chained pairs differ from the unchained DB's")
+    agree = total = 0
+    worst = 0.0
+    for (f, g), fu in ref_flows.items():
+        fc = flows.get((f, g))
+        if fc is None or abs(g - f) > 2:
+            continue
+        ic = dict(zip(fc.src_kps_indices.tolist(), fc.tgt_kps))
+        iu = dict(zip(fu.src_kps_indices.tolist(), fu.tgt_kps))
+        shared = sorted(set(ic) & set(iu))
+        total += max(len(ic), len(iu))
+        agree += len(shared)
+        if shared:
+            d = np.linalg.norm(np.array([ic[i] - iu[i] for i in shared]),
+                               axis=1)
+            worst = max(worst, float(np.median(d)))
+    share = agree / max(total, 1)
+    if worst >= CHAIN_MEDIAN_MAX:
+        fails.append(f"a pair's chained flows lie a median {worst:.3g} px "
+                     f"from the unchained ones")
+    if share <= CHAIN_AGREE_MIN:
+        fails.append(f"only {share:.4f} of the flows kept by both runs")
+    return share, worst, fails
+
+
+def routes_phase(device, frames, analyze_db, smi):
+    """GFTT's device suppression route and the chained skip fan (module
+    docstring, item 12).  Returns K4's comparison results and the launches
+    of the gated chained runs."""
+    from polychase_tpu_torch.engine import gftt, lk
+    from polychase_tpu_torch.engine.opticalflow import (
+        IMAGE_SKIPS, VideoInfo, generate_optical_flow_database,
+    )
+    from polychase_tpu_torch.kernels import gftt_suppress, lk_iter, lk_prep
+    from polychase_tpu_torch.synthetic import panning_clip
+
+    fails = []
+    n = len(frames)
+    height, width = frames[0].shape
+    opts = gftt.GFTTOptions()
+    print(f"  device route from {gftt.DEVICE_SUPPRESS_MIN} pixels "
+          f"(gftt.DEVICE_SUPPRESS_MIN), min_distance "
+          f"{opts.min_distance:g}; frames resumed on the card so far "
+          f"{gftt.resumed_frames}")
+
+    # K4 against its plain version: the clip's response maps (every 4th
+    # frame) and one 4K noise frame, at each disc.
+    big = panning_clip(np.random.default_rng(5), 1, 3840, 2160,
+                       PAN_STEP)[0]
+    images = [("clip frame %d" % f, frames[f]) for f in range(0, n, 4)]
+    images.append(("4K noise frame", big))
+    k4_err = 0.0
+    for name, frame in images:
+        img = torch.as_tensor(frame, device=device)
+        eig, cand = gftt.gftt_response(img.to(torch.float32), None,
+                                       opts.quality_level, opts.harris_k)
+        q = torch.where(cand, eig, 0.0).contiguous()
+        line = []
+        for d in K4_DISCS:
+            offs = gftt._circle_offsets(d)
+            got = gftt_suppress.gftt_suppress(q, offs)
+            ref = gftt.suppress_plain(q, offs)
+            same = torch.equal(got[0], ref[0])
+            k4_err = max(k4_err, float((got[0].float()
+                                        - ref[0].float()).abs().max()))
+            conv = (bool(got[1]), bool(ref[1]))
+            line.append(f"d {d:g}: {int(got[0].sum())} kept, "
+                        f"{int(got[2])} rounds"
+                        + ("" if same and conv == (True, True) else
+                           " (DIFFERS)"))
+            if not same or conv != (True, True) or int(got[2]) != int(
+                    ref[2]):
+                fails.append(f"K4 vs plain on {name} at d {d:g}: kept "
+                             f"{'equal' if same else 'DIFFER'}, converged "
+                             f"{conv}, rounds {int(got[2])} / {int(ref[2])}")
+        print(f"  K4 vs plain, {name} ({int(cand.sum())} candidates): "
+              + "; ".join(line))
+        # The device route's corners against the host route's, at every
+        # disc: equal, in the same order.
+        corners = {}
+        for d in K4_DISCS:
+            o = opts._replace(min_distance=d)
+            saved = gftt.DEVICE_SUPPRESS_MIN
+            try:
+                gftt.DEVICE_SUPPRESS_MIN = 0
+                dev_pts, dev_q = gftt.good_features_to_track(
+                    img, None, o, device=device)
+                gftt.DEVICE_SUPPRESS_MIN = HOST_ONLY
+                host_pts, host_q = gftt.good_features_to_track(
+                    img, None, o, device=device)
+            finally:
+                gftt.DEVICE_SUPPRESS_MIN = saved
+            corners[d] = dev_pts.shape[0]
+            if not (np.array_equal(dev_pts, host_pts)
+                    and np.array_equal(dev_q, host_q)):
+                fails.append(f"device-route corners differ from the host "
+                             f"route's on {name} at d {d:g}")
+        h, w = frame.shape
+        print(f"    device-route corners (equal to the host route's unless "
+              f"a failure says so): {corners}; the kept buffer at d 5 holds "
+              f"{int((w / 5 + 2) * (h / 5 + 2) * 1.16)}")
+    # K4 and its plain version timed on a clip frame at the default disc.
+    img = torch.as_tensor(frames[PAN_SOURCE], device=device)
+    eig, cand = gftt.gftt_response(img.to(torch.float32), None,
+                                   opts.quality_level, opts.harris_k)
+    q = torch.where(cand, eig, 0.0).contiguous()
+    offs = gftt._circle_offsets(opts.min_distance)
+    k4_ms = event_ms(lambda: gftt_suppress.gftt_suppress(q, offs), 20)
+    k4_plain = event_ms(lambda: gftt.suppress_plain(q, offs), 3)
+    whole = gftt_suppress.gftt_suppress(q, offs)
+    rounds = int(whole[2])
+    # Cut at 2 rounds a call and resumed from its state: the uncut result.
+    cut = gftt_suppress.gftt_suppress(q, offs, 2)
+    state, cut_rounds, calls = cut[3], int(cut[2]), 1
+    while not bool(cut[1]):
+        cut = gftt_suppress.gftt_suppress(q, offs, 2, state)
+        state, cut_rounds, calls = cut[3], cut_rounds + int(cut[2]), calls + 1
+    print(f"  K4 cut at 2 rounds a call: {calls} calls, {cut_rounds} rounds, "
+          f"kept map {'equal' if torch.equal(cut[0], whole[0]) else 'DIFFERS'}"
+          f" to the uncut call's")
+    if not torch.equal(cut[0], whole[0]) or cut_rounds != rounds:
+        fails.append("K4 resumed from its state differs from the uncut call")
+    # The rounds K4 runs on each of the main path's frames (their response
+    # maps at the default options, as the analyze phase suppressed them).
+    clip_rounds = []
+    for frame in frames:
+        fi = torch.as_tensor(frame, device=device).to(torch.float32)
+        e, c = gftt.gftt_response(fi, None, opts.quality_level,
+                                  opts.harris_k)
+        clip_rounds.append(int(gftt_suppress.gftt_suppress(
+            torch.where(c, e, 0.0).contiguous(), offs)[2]))
+    print(f"  K4 rounds on the clip's {n} frames at d {opts.min_distance:g}: "
+          f"{clip_rounds} ({sum(clip_rounds)} in all, {gftt.MAX_ROUNDS} "
+          f"queued a frame)")
+    k4_b = k4_bound(height, width, rounds)
+    key_bytes_ms = rounds * 2 * 8 * height * width / PEAK_BYTES_S * 1e3
+    print(f"  K4, clip frame {PAN_SOURCE} at d {opts.min_distance:g}: "
+          f"{k4_ms:.4f} ms ({rounds} rounds of {gftt.MAX_ROUNDS} queued; "
+          f"plain {k4_plain:.4f} ms; bound {k4_b[0]:.5f} ms by {k4_b[1]}, "
+          f"{k4_b[0] / k4_ms:.4f} of it; two passes over an 8-byte key map "
+          f"a round would take {key_bytes_ms:.4f} ms)")
+
+    # The crossover: one frame's GFTT by route, in turns (host, device,
+    # device, host) at each size; the crossover is the smallest size from
+    # which the device route wins both turns.
+    crossover = None
+    for w, h in ROUTE_SIZES:
+        frame = (frames[0] if (w, h) == (width, height) else big
+                 if (w, h) == (3840, 2160) else panning_clip(
+                     np.random.default_rng(6), 1, w, h, PAN_STEP)[0])
+        img = torch.as_tensor(frame, device=device)
+        t = [gftt_route_ms(img, device, host) for host in
+             (True, False, False, True)]
+        print(f"  GFTT {w}x{h} ({w * h} px) a frame: host route "
+              f"{t[0]:.4f} / {t[3]:.4f} ms, device route {t[1]:.4f} / "
+              f"{t[2]:.4f} ms (in turns) on {smi}")
+        if max(t[1], t[2]) < min(t[0], t[3]):
+            crossover = w * h if crossover is None else crossover
+        else:
+            crossover = None
+    print(f"  suppression crossover: the device route wins both turns at "
+          f"every size from {crossover} px; gftt.DEVICE_SUPPRESS_MIN = "
+          f"{gftt.DEVICE_SUPPRESS_MIN}")
+
+    # The chained analyze of the clip against the unchained one, in turns.
+    info = VideoInfo(width, height, 0, n)
+    workdir = os.path.dirname(analyze_db)
+    levels, solves = analyze_solves(n, height, width)
+    phases = sum(len({abs(s) for s in IMAGE_SKIPS if 0 <= f + s < n})
+                 for f in range(n))
+
+    def run(path, chained, on=device):
+        os.environ["POLYCHASE_LK_CHAIN"] = "1" if chained else "0"
+        try:
+            t0 = time.perf_counter()
+            generate_optical_flow_database(info, lambda f: frames[f], None,
+                                           path, device=on)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        finally:
+            os.environ.pop("POLYCHASE_LK_CHAIN")
+
+    # In turns: GFTT's host route, its device route, chained (device
+    # route), then back; the first chained run is the gated one.
+    seconds = {}
+    saved = gftt.DEVICE_SUPPRESS_MIN
+    for i, name in enumerate(("host route", "device route", "chained",
+                              "chained", "device route", "host route")):
+        path = os.path.join(workdir, f"routes_{i}.db")
+        if i == 2:
+            lk_prep.launches = lk_iter.launches = gftt_suppress.launches = 0
+        gftt.DEVICE_SUPPRESS_MIN = (height * width + 1 if name == "host route"
+                                    else saved)
+        try:
+            seconds.setdefault(name, []).append(run(path, name == "chained"))
+        finally:
+            gftt.DEVICE_SUPPRESS_MIN = saved
+        if i == 2:
+            launches = (lk_prep.launches, lk_iter.launches,
+                        gftt_suppress.launches)
+            chain_db = path
+    kps, flows = read_analyze_db(chain_db, n)
+    ref_kps, ref_flows = read_analyze_db(analyze_db, n)
+    fails += analyze_gates(kps, flows, n)
+    share, worst, f = chain_gates(kps, flows, ref_kps, ref_flows)
+    fails += f
+    k4_want = n if gftt.device_suppress_route(height * width, opts) else 0
+    want = (levels * solves, levels * phases, k4_want)
+    print(f"  chained analyze: K2 / K3 / K4 launches {launches} (want "
+          f"{want}: {solves} solves x {levels} levels, {phases} phases); "
+          f"against the unchained DB at skips ±1/±2: {share:.4f} of the "
+          f"flows kept by both, largest median distance {worst:.4g} px"
+          + "".join(f"; {m}" for m in f))
+    if launches != want:
+        fails.append(f"chained K2/K3/K4 launched {launches}, want {want}")
+    print(f"  analyze {width}x{height}, {n} frames, frames/s in turns "
+          f"(host route, device route, chained, chained, device route, host "
+          f"route): " + ", ".join(
+              f"{k} {n / v[0]:.4f} / {n / v[1]:.4f}"
+              for k, v in seconds.items()) + f" on {smi}")
+
+    # The chained analyze split over the devices, against one device's.
+    devices, cards = shard_devices()
+    lk_prep.launches = lk_iter.launches = 0
+    split_db = os.path.join(workdir, "routes_split.db")
+    split_s = run(split_db, True, devices)
+    split_launches = (lk_prep.launches, lk_iter.launches)
+    skps, sflows = read_analyze_db(split_db, n)
+    same_kps = all(np.array_equal(a, b) for a, b in zip(skps, kps))
+    same_kept = set(sflows) == set(flows) and all(
+        np.array_equal(sflows[k].src_kps_indices, flows[k].src_kps_indices)
+        for k in flows)
+    dflow = max((float(np.abs(sflows[k].tgt_kps - flows[k].tgt_kps).max(
+        initial=0.0)) for k in flows if k in sflows), default=0.0)
+    D = len(devices)
+    split_want = (levels * solves * D, levels * phases * D)
+    print(f"  chained analyze over {[str(d) for d in devices]}"
+          + ("" if cards else " (two shards on one card)")
+          + f": {n / split_s:.4f} frames/s; K2 / K3 launches "
+          f"{split_launches} (want {split_want}); against the one-device "
+          f"chained DB: keypoints {'equal' if same_kps else 'DIFFER'}, kept "
+          f"flows {'the same' if same_kept else 'DIFFER'}, largest flow "
+          f"difference {dflow:.3g} px")
+    if split_launches != split_want:
+        fails.append(f"split chained K2/K3 launched {split_launches}, want "
+                     f"{split_want}")
+    if not same_kps or not same_kept or dflow > SHARD_POS_ATOL:
+        fails.append("the split chained analyze differs from the one-device"
+                     f" chained analyze ({dflow:.3g} px)")
+    # The device route never hands a frame to the host; a frame whose
+    # fixed point outlasts MAX_ROUNDS rounds is resumed on the card.
+    print(f"  GFTT frames resumed on the card in this run: "
+          f"{gftt.resumed_frames}")
+    torch.cuda.synchronize()
+    if fails:
+        raise AssertionError("analyze routes:\n" + "\n".join(fails))
+    return dict(ms=k4_ms, plain_ms=k4_plain, bound=k4_b, max_abs_err=k4_err,
+                routes_launches=launches, split_launches=split_launches,
+                clip_rounds=sum(clip_rounds))
+
+
 def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
                          "on a GPU")
     from polychase_tpu_torch.backend import require_cuda
-    from polychase_tpu_torch.kernels import build, lk_iter, lk_prep, pnp_lm
+    from polychase_tpu_torch.kernels import (
+        build, gftt_suppress, lk_iter, lk_prep, pnp_lm,
+    )
     from polychase_tpu_torch.synthetic import panning_clip
 
     smi = nvidia_smi()
@@ -2242,8 +2593,9 @@ def main() -> None:
 
     print("build (one nvcc per source, in parallel):")
     t0 = time.perf_counter()
-    libs = build.load_all(["pnp_lm.cu", "lk_prep.cu", "lk_iter.cu"])
-    for mod in (pnp_lm, lk_prep, lk_iter):
+    libs = build.load_all(["pnp_lm.cu", "lk_prep.cu", "lk_iter.cu",
+                           "gftt_suppress.cu"])
+    for mod in (pnp_lm, lk_prep, lk_iter, gftt_suppress):
         mod.load()
     for lib in libs:
         print(f"  {lib.path.name}: nvcc {lib.build_seconds:.2f} s")
@@ -2282,16 +2634,19 @@ def main() -> None:
         k1_segments, seg_err = segments_phase(device, track, refine, smi)
         print("sharded phase (analyze and refine split over devices):")
         lk_sharded = sharded_phase(device, frames, analyze_db, refine, smi)
+        print("analyze-routes phase (GFTT device suppression, chained fan):")
+        routes = routes_phase(device, frames, analyze_db, smi)
 
     (k2_ms, k2_plain), (k3_ms, k3_plain) = lk_times
     (k2_bound_ms, k2_by), (k3_bound_ms, k3_by) = lk_bounds
     k1_ms, k1_plain, _, _, (k1_bound_ms, k1_by) = times[
         "loss1_ftol1e-05_f0_pp0"]
-    # No single PyTorch call computes any of the three (library_ms null).
+    # No single PyTorch call computes any of the four (library_ms null).
     # ``launches`` counts the main path's runs (analyze; tracking and the pin
     # drags), ``surface_launches`` the surface phase's gated runs,
-    # ``segments_launches`` the gated ``track_segments`` run and
-    # ``sharded_launches`` the gated split analyze.
+    # ``segments_launches`` the gated ``track_segments`` run,
+    # ``sharded_launches`` the gated split analyze, ``routes_launches`` the
+    # gated chained analyze and ``routes_sharded_launches`` its split.
     kernels = [{
         "name": "pnp_lm",
         "route": "cuda",
@@ -2314,6 +2669,8 @@ def main() -> None:
         "launches": lk_launches[0],
         "surface_launches": lk_surface[0],
         "sharded_launches": lk_sharded[0],
+        "routes_launches": routes["routes_launches"][0],
+        "routes_sharded_launches": routes["split_launches"][0],
         "max_abs_err": patch_err,
         "ms": k2_ms,
         "plain_ms": k2_plain,
@@ -2328,11 +2685,34 @@ def main() -> None:
         "launches": lk_launches[1],
         "surface_launches": lk_surface[1],
         "sharded_launches": lk_sharded[1],
+        "routes_launches": routes["routes_launches"][1],
+        "routes_sharded_launches": routes["split_launches"][1],
         "max_abs_err": pos_err,
         "ms": k3_ms,
         "plain_ms": k3_plain,
         "bound_ms": k3_bound_ms,
         "bound_by": k3_by,
+        "library_ms": None,
+    }, {
+        "name": "gftt_suppress",
+        "route": "cuda",
+        "source": "polychase_tpu_torch/csrc/gftt_suppress.cu",
+        # A kernel of the port alone: the JAX package runs this fixed point
+        # as XLA, not Pallas.
+        "replaces": "polychase_tpu/engine/gftt.py:540",
+        # Wrapper calls, one a frame; each queues 1 + 2 x MAX_ROUNDS CUDA
+        # launches (cuda_launches), of which the rounds after the fixed
+        # point return at once (rounds: those that did work on the main
+        # path's frames).
+        "launches": lk_launches[2],
+        "cuda_launches": lk_launches[3],
+        "rounds": routes["clip_rounds"],
+        "routes_launches": routes["routes_launches"][2],
+        "max_abs_err": routes["max_abs_err"],
+        "ms": routes["ms"],
+        "plain_ms": routes["plain_ms"],
+        "bound_ms": routes["bound"][0],
+        "bound_by": routes["bound"][1],
         "library_ms": None,
     }]
     print(smi)

@@ -5,15 +5,21 @@ reference's GFTT (cpp/feature_detection/gftt.{h,cc}).  The dense part runs
 in plain torch on the device: the Shi-Tomasi or Harris response (Sobel with
 reflect-101 borders, unnormalized box filter, OpenCV's 8-bit scaling), the
 per-grid-block threshold-to-zero, the 3×3 dilation NMS away from the 1-px
-border, and a top-k of the candidates on a 2×2 block max.  The sequential
-tail, the quality sort (ties: later row-major position first) and the
-greedy min-distance suppression, runs on the host in the native
-``gftt_sort_suppress`` of the port's ``native`` (numpy where it is
-missing).
+border.  The tail, the quality sort (ties: later row-major position first)
+and the greedy min-distance suppression, takes one of two routes that give
+the same corners in the same order:
 
-The reference suppresses on the device for frames of 2 MP and more; both
-routes give the same corners, and this port takes the host route at every
-size.
+- host route: a top-k of the candidates on a 2×2 block max crosses to the
+  host, where the native ``gftt_sort_suppress`` of the port's ``native``
+  (numpy where it is missing) sorts and suppresses;
+- device route (:func:`device_suppress_route`, frames of
+  ``DEVICE_SUPPRESS_MIN`` pixels and more): the suppression runs on the
+  device as the reference's exact fixed point (``_suppress_device``), on a
+  card in the kernel K4 (``kernels/gftt_suppress.py``), and only the kept
+  points cross, to be put in quality order.  Where the fixed point has
+  points undecided after ``MAX_ROUNDS`` rounds, :func:`gftt_finish` runs
+  more rounds on the device from where they stopped (the JAX package
+  redoes such a frame on the host); ``resumed_frames`` counts those frames.
 """
 
 from __future__ import annotations
@@ -44,6 +50,17 @@ class GFTTOptions(NamedTuple):
 
 # Overflowed ``count`` that signals a tie inside a 2×2 block.
 _COLLISION_COUNT = 2 ** 30
+
+# Frames of at least this many pixels take the device suppression route.
+# The port's own threshold, not the JAX package's TPU one (2,000,000):
+# chip_smoke.py's crossover on an H100 (PERF.md) had the device route win
+# both turns from 1280×720 up and split them at 640×480.
+DEVICE_SUPPRESS_MIN = 921_600
+# Rounds of the suppression fixed point queued at a time.
+MAX_ROUNDS = 128
+# Frames of the device route whose fixed point outlasted MAX_ROUNDS rounds
+# and was finished by more rounds queued in gftt_finish, in this process.
+resumed_frames = 0
 
 
 def _check_options(options: GFTTOptions) -> None:
@@ -223,13 +240,122 @@ def gftt_candidates_topk(image, mask, quality_level, harris_k, *, k: int,
     return vals, blin[bidx], count
 
 
+def _circle_offsets(min_distance: float) -> Tuple[Tuple[int, int], ...]:
+    """Integer pixel offsets (dy, dx) with dx² + dy² < d² (strict, as the
+    reference's distance test, cpp/feature_detection/gftt.cc:139-148)."""
+    r = int(np.ceil(min_distance)) - 1
+    return tuple((dy, dx) for dy in range(-r, r + 1) for dx in range(-r, r + 1)
+                 if dx * dx + dy * dy < min_distance * min_distance)
+
+
+def suppress_plain(qmap: torch.Tensor, offsets, max_rounds: int = MAX_ROUNDS,
+                   state: Optional[torch.Tensor] = None):
+    """Exact greedy min-distance suppression as a fixed point (plain version
+    of K4; the reference's ``_suppress_device``).
+
+    ``qmap`` (H, W) float32 holds the candidates' qualities, 0 elsewhere.
+    Each round first rejects every undecided point within the disc
+    ``offsets`` of a kept point, then keeps every undecided point whose key
+    (float bits of its quality << 32 | its row-major index, so the later
+    index wins a tie) beats every undecided neighbour's.  Returns ``(kept
+    (H, W) bool, converged () bool, rounds () int32, state (H, W) uint8)``;
+    ``converged`` is False where points are still undecided after
+    ``max_rounds`` rounds, and ``state`` (1 undecided, 2 or more kept)
+    passed back in goes on from there: the kept map does not depend on
+    where the rounds were cut.
+    """
+    H, W = qmap.shape
+    dev = qmap.device
+    nbrs = [o for o in offsets if o != (0, 0)]
+    r = max([max(abs(dy), abs(dx)) for dy, dx in nbrs] + [0])
+    lin = torch.arange(H * W, dtype=torch.int64, device=dev).reshape(H, W)
+    keys = (qmap.contiguous().view(torch.int32).to(torch.int64) << 32) | lin
+    if state is None:
+        und = qmap > 0.0
+        kept = torch.zeros_like(und)
+    else:
+        und, kept = state == 1, state >= 2
+    kp = torch.zeros((H + 2 * r, W + 2 * r), dtype=torch.bool, device=dev)
+    kpad = torch.zeros((H + 2 * r, W + 2 * r), dtype=torch.int64, device=dev)
+
+    def shifted(p, dy, dx):
+        return p[r + dy:r + dy + H, r + dx:r + dx + W]
+
+    rounds = 0
+    while rounds < max_rounds and bool(und.any()):
+        kp[r:r + H, r:r + W] = kept
+        for dy, dx in nbrs:
+            und = und & ~shifted(kp, dy, dx)
+        key = torch.where(und, keys, 0)
+        kpad[r:r + H, r:r + W] = key
+        best = key
+        for dy, dx in nbrs:
+            best = torch.maximum(best, shifted(kpad, dy, dx))
+        won = und & (key == best)
+        kept = kept | won
+        und = und & ~won
+        rounds += 1
+    state = kept.to(torch.uint8) * 2 + und.to(torch.uint8)
+    return (kept, ~und.any(),
+            torch.tensor(rounds, dtype=torch.int32, device=dev), state)
+
+
+def device_suppress_route(num_pixels: int, options: GFTTOptions) -> bool:
+    """Whether :func:`gftt_dispatch` suppresses on the device: from
+    ``DEVICE_SUPPRESS_MIN`` pixels, for 1 ≤ min_distance ≤ 8 (the
+    reference's guard: the disc has up to ~200 offsets at 8)."""
+    return (1.0 <= options.min_distance <= 8.0
+            and num_pixels >= DEVICE_SUPPRESS_MIN)
+
+
+def _compact_kept(qmap, kept, k: int):
+    """The kept points' qualities and row-major indices in row-major order,
+    zero past ``count``, in buffers of ``k``: ``(vals (k,), idx (k,),
+    count)``."""
+    flat = kept.reshape(-1)
+    pos = torch.cumsum(flat, 0) - 1
+    count = pos[-1] + 1
+    # Slot k takes the points that are not kept or do not fit.
+    slot = torch.where(flat & (pos < k), pos, k)
+    lin = torch.arange(flat.numel(), device=flat.device)
+    idx = torch.zeros(k + 1, dtype=torch.int64, device=flat.device)
+    idx.scatter_(0, slot, lin)
+    idx = idx[:k]
+    vals = torch.where(torch.arange(k, device=flat.device) < count,
+                       qmap.reshape(-1)[idx], 0.0)
+    return vals, idx, count
+
+
+def gftt_suppressed_topk(image, mask, quality_level, harris_k, *, k: int,
+                         offsets, **kw):
+    """The whole GFTT tail on the device: response → NMS → min-distance
+    suppression (K4 on a card) → the kept points.
+
+    Returns ``(vals (k,), idx (k,), count, converged, qmap, state)``: the
+    kept points' qualities and row-major indices in row-major order (the
+    finish puts them in quality order, so the reference's top-k of the kept
+    set is a compaction here), zero past ``count``; where ``converged`` is
+    False the finish goes on from ``state`` on the quality map ``qmap``.
+    ``k`` must hold every kept point (the hex-packing bound)."""
+    from ..kernels.gftt_suppress import gftt_suppress
+
+    eig, cand = gftt_response(image, mask, quality_level, harris_k, **kw)
+    qmap = torch.where(cand, eig, 0.0).contiguous()
+    kept, converged, _, state = gftt_suppress(qmap, offsets, MAX_ROUNDS)
+    return (*_compact_kept(qmap, kept, k), converged, qmap, state)
+
+
 class GFTTDispatch(NamedTuple):
     """In-flight detection for one frame."""
 
-    copy: HostCopy        # (vals, idx, count) on their way to the host
+    copy: HostCopy        # (vals, idx, count[, converged]) to the host
     shape: Tuple[int, int]
     options: GFTTOptions
-    fallback: tuple       # (image f32, mask) on the device, for overflow
+    # On the device, what the finish may need: (image, mask) on the host
+    # route, to redo an overflowed top-k; (qmap, state, k) on the device
+    # route, to go on with an unfinished fixed point.
+    fallback: tuple
+    suppressed: bool = False  # the device route: vals hold the kept set
 
 
 def _as_mask(mask, device) -> Optional[torch.Tensor]:
@@ -246,7 +372,8 @@ def gftt_dispatch(image, mask=None, options: GFTTOptions = GFTTOptions(),
     """Start GFTT for a frame: the device work is queued, nothing blocks.
 
     ``image`` is a host array or a tensor (uint8 keeps OpenCV's 8-bit
-    scaling); it is converted to float32 on ``device``."""
+    scaling); it is converted to float32 on ``device``.  The route is
+    :func:`device_suppress_route`'s."""
     device = as_device(device)
     if isinstance(image, torch.Tensor):
         img = image.to(device, non_blocking=True)
@@ -259,17 +386,29 @@ def gftt_dispatch(image, mask=None, options: GFTTOptions = GFTTOptions(),
     is_8u = img.dtype == torch.uint8
     imgf = img.to(torch.float32)
     maskt = _as_mask(mask, device)
+    kw = _response_kw(options, is_8u)
+    q, hk = float(options.quality_level), float(options.harris_k)
+    if device_suppress_route(img.numel(), options):
+        # Kept points are pairwise >= min_distance apart, so the hex
+        # packing bound caps their count (Groemer's bound for a W×H
+        # rectangle, 2WH/(√3 d²) + (W + H)/d + 1, lies below it; a 4K
+        # noise frame keeps ~170k at d = 5, the bound is ~390k).
+        d = float(options.min_distance)
+        H, W = img.shape
+        pack = int((W / d + 2) * (H / d + 2) * 1.16)
+        k = min(max(32768, pack), img.numel())
+        *out, qmap, state = gftt_suppressed_topk(
+            imgf, maskt, q, hk, k=k, offsets=_circle_offsets(d), **kw)
+        return GFTTDispatch(HostCopy(*out), tuple(img.shape), options,
+                            (qmap, state, k), suppressed=True)
     if k <= 0:
         # NMS candidates are at most ~1 per 3x3 neighbourhood; budget 1/16
         # of the pixels.
         k = max(32768, img.numel() // 16)
     k = min(k, img.numel())
-    vals, idx, count = gftt_candidates_topk(
-        imgf, maskt, float(options.quality_level), float(options.harris_k),
-        k=k, **_response_kw(options, is_8u),
-    )
+    vals, idx, count = gftt_candidates_topk(imgf, maskt, q, hk, k=k, **kw)
     return GFTTDispatch(HostCopy(vals, idx, count), tuple(img.shape),
-                        options, (imgf, maskt, is_8u))
+                        options, (img, maskt))
 
 
 def _native_sort_suppress(vals, lin, w, h, min_distance, max_corners):
@@ -331,17 +470,54 @@ def _sort_suppress_numpy(vals, lin, w, h, min_distance, max_corners):
     return np.asarray(kept, np.int64)
 
 
+def _finish_suppressed(d: GFTTDispatch):
+    """Host half of the device route: the kept points in quality order (the
+    greedy pass's acceptance order), cut at ``max_corners``.  A fixed point
+    with points still undecided goes on, on the device, from its state."""
+    global resumed_frames
+    from ..kernels.gftt_suppress import gftt_suppress
+    from .. import native
+
+    vals, idx, count, converged = d.copy.numpy()
+    if not bool(converged):
+        resumed_frames += 1
+        qmap, state, k = d.fallback
+        offsets = _circle_offsets(float(d.options.min_distance))
+        done = False
+        while not done:
+            kept, conv, _, state = gftt_suppress(qmap, offsets, MAX_ROUNDS,
+                                                 state)
+            done = bool(conv)  # waits for this batch of rounds
+        vals, idx, count = HostCopy(*_compact_kept(qmap, kept, k)).numpy()
+    assert int(count) <= vals.shape[0], "more kept points than the bound"
+    keep = vals > 0.0
+    vals, lin = vals[keep], idx[keep].astype(np.int64)
+    order = native.quality_order(vals, lin)
+    if d.options.max_corners > 0:
+        # Greedy with a cap is the unlimited greedy cut at the first
+        # max_corners acceptances (the same visiting order).
+        order = order[:int(d.options.max_corners)]
+    W = d.shape[1]
+    pts = np.stack([(lin[order] % W).astype(np.float32),
+                    (lin[order] // W).astype(np.float32)], axis=-1)
+    return pts.reshape(-1, 2), vals[order].astype(np.float32)
+
+
 def gftt_finish(d: GFTTDispatch) -> Tuple[np.ndarray, np.ndarray]:
-    """Blocking host half: sort + greedy min-distance suppression.
-    Returns ``(corners (N, 2) f32, quality (N,) f32)``."""
+    """Blocking host half: sort + greedy min-distance suppression, or on
+    the device route the order of the kept points.  Returns ``(corners
+    (N, 2) f32, quality (N,) f32)``."""
+    if d.suppressed:
+        return _finish_suppressed(d)
     vals, idx, count = d.copy.numpy()
     H, W = d.shape
     if int(count) > vals.shape[0]:
         # Top-k overflow or a 2×2 tie: redo from the full map (exact).
-        imgf, maskt, is_8u = d.fallback
+        img, maskt = d.fallback
         eig, cand = gftt_response(
-            imgf, maskt, float(d.options.quality_level),
-            float(d.options.harris_k), **_response_kw(d.options, is_8u),
+            img.to(torch.float32), maskt, float(d.options.quality_level),
+            float(d.options.harris_k),
+            **_response_kw(d.options, img.dtype == torch.uint8),
         )
         packed = torch.where(cand, eig, 0.0).cpu().numpy()
         ys, xs = np.nonzero(packed)

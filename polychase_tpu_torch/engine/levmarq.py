@@ -115,8 +115,16 @@ def damped_cholesky_solve(JtJ, Jtr, lam):
     As = A * d[:, :, None] * d[:, None, :]
     bs = Jtr * d
     L, info = torch.linalg.cholesky_ex(As)
-    y = torch.linalg.solve_triangular(L, bs[..., None], upper=False)
-    x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+    # The substitutions one system at a time, each in its own allocation:
+    # the CPU's triangular solves order their operations differently for
+    # the later systems of a batch and for a view at an unaligned offset,
+    # and a solve's result must not depend on the batch it is in.
+    xs = []
+    for Li, bi in zip(L, bs):
+        Li, bi = Li.clone(), bi[:, None].clone()
+        y = torch.linalg.solve_triangular(Li, bi, upper=False)
+        xs.append(torch.linalg.solve_triangular(Li.T, y, upper=True))
+    x = torch.stack(xs)
     step = -(x[..., 0] * d)
     ok = (
         (info == 0)
@@ -222,13 +230,16 @@ def _normal_equations(problem: LMProblem, opts: BundleOptions, params):
     r2 = torch.sum(res * res, dim=-1)
     w = weight * loss_weight(opts.loss_type, opts.loss_scale, r2)
     w = torch.where(valid, w, torch.zeros_like(w))
-    JtJ = torch.einsum("snlp,snlq,sn->spq", J, J, w)
-    # A row-vector product, not an einsum to (S, P): that one sums in
-    # another order for S > 1 than for S = 1 on the CPU, and a solve's
-    # result must not depend on the batch it is in.
+    # Products summed over the last, contiguous axis, not einsums or
+    # matrix products: those pick their CPU kernel (and so their order of
+    # summation) by the batch's shape and the host's SIMD width, and a
+    # solve's result must not depend on the batch it is in.
     S, N, L, P = J.shape
-    Jtr = ((res * w[..., None]).reshape(S, 1, N * L)
-           @ J.reshape(S, N * L, P))[:, 0]
+    Jt = J.reshape(S, N * L, P).transpose(1, 2).contiguous()  # (S, P, N·L)
+    wt = w[:, :, None].expand(S, N, L).reshape(S, 1, N * L)
+    Jwt = Jt * wt
+    JtJ = (Jt[:, :, None, :] * Jwt[:, None, :, :]).sum(dim=-1)
+    Jtr = (Jwt * res.reshape(S, 1, N * L)).sum(dim=-1)
     return JtJ, Jtr
 
 
@@ -264,7 +275,7 @@ def lm_solve(problem: LMProblem, params0: torch.Tensor, opts: BundleOptions):
         tiny = solve_ok & (sn < opts.step_tol)
 
         actual = cost_new - cost
-        JtJ_step = torch.einsum("spq,sq->sp", JtJ, step)
+        JtJ_step = (JtJ * step[:, None, :]).sum(dim=-1)
         expected = torch.sum(step * (2.0 * Jtr + JtJ_step), dim=-1)
         rho = actual / expected
         factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)

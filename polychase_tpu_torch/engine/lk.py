@@ -19,17 +19,23 @@ semantics (``video/src/lkpyramid.cpp``):
 - given several devices, a solve splits its features (from
   ``FEAT_SHARD_MIN`` of them) or else its targets over them
   (``parallel.analyze``), as the reference's mesh routes do
-  (``polychase_tpu/engine/lk.py:865-924``, ``:1111-1164``).
+  (``polychase_tpu/engine/lk.py:865-924``, ``:1111-1164``);
+- with ``POLYCHASE_LK_CHAIN=1`` (the reference's opt-in, default off) a
+  skip fan is solved as chained phases (:func:`chain_engages`,
+  :func:`_chained_dispatch`): K2 once per level for every phase, then K3
+  once per level per phase, each phase seeded from the flows of the one
+  before it.
 
 Filters are sums of shifted slices in tap order, as the reference writes
 them, so the CPU arm agrees with it to float rounding.  The reference's TPU
 devices (shape buckets, 4/8 target padding, the compressed result transfer,
-bf16 storage, the chained fan) are not ported.
+bf16 storage) are not ported.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -352,12 +358,14 @@ def iter_level_counted(imgs_pad, patches, a11, a12, a22, invd, ok, pts, *,
 def _lk_level(prev_level: Level, next_imgs, prev_pts, next_pts, *,
               level_is_zero: bool, eps2: float, min_eig_thr: float,
               win: int, max_iters: int, prep=prep_level,
-              iterate=iter_level):
-    """One pyramid level: the source prep, then the iteration into every
-    target.  ``prep`` / ``iterate`` default to the plain versions."""
+              iterate=iter_level, pre=None):
+    """One pyramid level: the source prep (``pre`` where it is hoisted),
+    then the iteration into every target.  ``prep`` / ``iterate`` default
+    to the plain versions."""
     img, dx, dy, (H, W) = prev_level
-    pre = prep(img, dx, dy, prev_pts, win=win, H=H, W=W,
-               min_eig_thr=min_eig_thr)
+    if pre is None:
+        pre = prep(img, dx, dy, prev_pts, win=win, H=H, W=W,
+                   min_eig_thr=min_eig_thr)
     return iterate(next_imgs, *pre, next_pts, win=win, H=H, W=W,
                    max_iters=max_iters, eps2=eps2,
                    level_is_zero=level_is_zero)
@@ -365,14 +373,19 @@ def _lk_level(prev_level: Level, next_imgs, prev_pts, next_pts, *,
 
 def _lk_core(prev_levels: Sequence[Level], next_images, pts, eps2: float,
              min_eig_thr: float, win: int, max_iters: int, levels: int, *,
-             prep=prep_level, iterate=iter_level):
+             prep=prep_level, iterate=iter_level, preps=None, start=None):
     """Coarse-to-fine chain of one source pyramid into T targets.
 
     ``next_images[lvl]`` is (T, Hp, Wp); ``pts`` (N, 2) full-resolution
-    source positions.  Returns ``(next (T, N, 2), status (T, N), err)``."""
+    source positions; ``start`` (T, N, 2) the full-resolution first guesses
+    (default ``pts``); ``preps`` the source prep of every level, hoisted
+    (default: ``prep`` at each level).  Returns ``(next (T, N, 2), status
+    (T, N), err)``."""
     T = next_images[0].shape[0]
     top = levels - 1
-    cur = (pts * (1.0 / (1 << top))).expand(T, *pts.shape).contiguous()
+    if start is None:
+        start = pts.expand(T, *pts.shape)
+    cur = (start * (1.0 / (1 << top))).contiguous()
     status = err = None
     for lvl in range(top, -1, -1):
         if lvl != top:
@@ -382,6 +395,7 @@ def _lk_core(prev_levels: Sequence[Level], next_images, pts, eps2: float,
             cur, level_is_zero=(lvl == 0), eps2=eps2,
             min_eig_thr=min_eig_thr, win=win, max_iters=max_iters,
             prep=prep, iterate=iterate,
+            pre=None if preps is None else preps[lvl],
         )
         if lvl == 0:
             status, err = st, er
@@ -400,6 +414,155 @@ def _lk_all_levels_multi(prev_levels, next_images, pts, eps2: float,
     return _lk_core(prev_levels, next_images, pts, eps2, min_eig_thr, win,
                     max_iters, levels, prep=lk_prep_level,
                     iterate=lk_iter_level)
+
+
+# ---------------------------------------------------------------------------
+# Chained skip fan (polychase_tpu/engine/lk.py:635-855)
+# ---------------------------------------------------------------------------
+#
+# The fan solves the same features into targets at skips ±{1, 2, 4, 8}.
+# Flow is near-linear over small skips: the skip-2k flow is about twice the
+# skip-k flow, so a phase seeded from the phase before it starts near its
+# optimum, and only the ±1 phase starts cold.  Phases go in |skip| order,
+# one slot per sign; a feature whose seed pair failed starts from zero, as
+# the unchained solve does.  On repetitive texture a seed can land in
+# another basin than the zero start: the same ambiguity, resolved towards
+# the extrapolated motion.  Downstream PnP and refine take flows through
+# inlier gates and robust losses, as they take OpenCV's.
+
+_CHAIN_T = 2  # slots per phase: one per sign of the skip
+
+
+def _lk_chain_enabled() -> bool:
+    """``POLYCHASE_LK_CHAIN=1`` chains the skip fan (default off): a switch
+    of the JAX package's semantics, kept as it is."""
+    return os.environ.get("POLYCHASE_LK_CHAIN", "0") == "1"
+
+
+def _chain_plan(skips):
+    """Group a skip fan into chained phases of same-|skip| targets.
+
+    Returns a list of phases, each a list of exactly ``_CHAIN_T`` slots
+    ``(orig_idx | None, src (phase, col) | None, scale)``: ``orig_idx``
+    indexes the caller's targets (None: padding, the source frame itself at
+    zero seed), ``src`` the same-sign slot solved in an earlier phase that
+    seeds this one, ``scale`` the skip ratio applied to its flow."""
+    mags = sorted({abs(s) for s in skips})
+    solved: dict = {}   # sign -> (mag, phase, col)
+    plan = []
+    for p, mag in enumerate(mags):
+        slots = []
+        for i, s in enumerate(skips):
+            if abs(s) != mag:
+                continue
+            sign = s > 0
+            src = solved.get(sign)
+            if src is None:
+                slots.append((i, None, 0.0))
+            else:
+                slots.append((i, (src[1], src[2]), mag / src[0]))
+            solved[sign] = (mag, p, len(slots) - 1)
+        while len(slots) < _CHAIN_T:
+            slots.append((None, None, 0.0))
+        plan.append(slots)
+    return plan
+
+
+def chain_engages(skips, n_features=None, n_devices: int = 1) -> bool:
+    """Whether a fan with these skips takes the chained dispatch: with
+    ``POLYCHASE_LK_CHAIN=1``, two magnitudes of skip at least, and, given
+    several devices, only in the feature split (``n_features`` ≥
+    ``FEAT_SHARD_MIN``): seeds are per feature, so they split with the
+    features; below it the target split uses the devices better than
+    2-wide phases would."""
+    if skips is None or not _lk_chain_enabled():
+        return False
+    if len({abs(s) for s in skips}) < 2:
+        return False
+    if n_devices <= 1:
+        return True
+    return n_features is not None and n_features >= FEAT_SHARD_MIN
+
+
+def lk_chain_prep(prev_levels: Sequence[Level], pts, *, win: int,
+                  min_eig_thr: float, levels: int):
+    """The source prep of every level for all phases of a chained fan: K2
+    once per level (its plain version on CPU tensors)."""
+    from ..kernels.lk_prep import lk_prep_level
+
+    out = []
+    for lvl in range(levels):
+        img, dx, dy, (H, W) = prev_levels[lvl]
+        out.append(lk_prep_level(img, dx, dy, pts * (1.0 / (1 << lvl)),
+                                 win=win, H=H, W=W, min_eig_thr=min_eig_thr))
+    return out
+
+
+def lk_chain_phase(prev_levels: Sequence[Level], preps, next_images, pts,
+                   src_nxt, src_status, scales, *, win: int, max_iters: int,
+                   eps2: float, levels: int):
+    """One chained phase of T slots: the seed ``where(src_status,
+    (src_nxt - pts) · scale, 0)``, then the solve from ``pts + seed`` with
+    the hoisted ``preps``, K3 once per level.  ``src_nxt`` (T, N, 2) and
+    ``src_status`` (T, N) are the seeding slots' results (``pts`` and False
+    where a slot has none), ``scales`` (T,).  Returns ``(next, status,
+    err)``."""
+    from ..kernels.lk_iter import lk_iter_level
+
+    seed = torch.where(src_status[..., None],
+                       (src_nxt - pts[None]) * scales[:, None, None], 0.0)
+    return _lk_core(prev_levels, next_images, pts, eps2, 0.0, win, max_iters,
+                    levels, iterate=lk_iter_level, preps=preps,
+                    start=pts[None] + seed)
+
+
+def _chained_dispatch(prev_pyr, next_pyrs, skips, pts_dev, opts: LKOptions,
+                      levels: int, devices):
+    """Queue the skip fan as chained phases, with no host sync: K2 once per
+    level, then per phase K3 once per level, each phase consuming the
+    earlier phases' results where they lie.  The features split into one
+    contiguous shard per device (one shard on one device), and each shard
+    seeds from its own shard of the earlier phases
+    (``parallel.analyze.sharded_lk_chain_*``).  Returns ``(next (T, N, 2),
+    status, err)`` on the first device, in the caller's target order."""
+    from ..parallel import analyze
+
+    plan = _chain_plan(skips)
+    eps = min(max(opts.term_epsilon, 0.0), 10.0)
+    shards = analyze.sharded_lk_chain_prep(
+        devices, prev_pyr.levels[:levels], pts_dev, win=opts.window_size,
+        min_eig_thr=float(opts.min_eigen_threshold), levels=levels)
+    outs = []  # per phase, per shard: (next, status, err)
+    for slots in plan:
+        pyrs = [prev_pyr if i is None else next_pyrs[i] for i, _, _ in slots]
+        stacked = [torch.stack([p.levels[lvl][0] for p in pyrs])
+                   for lvl in range(levels)]
+        src_nxt, src_status = [], []
+        for s, sh in enumerate(shards):
+            none = torch.zeros(sh.pts.shape[0], dtype=torch.bool,
+                               device=sh.pts.device)
+            src_nxt.append(torch.stack([
+                sh.pts if src is None else outs[src[0]][s][0][src[1]]
+                for _, src, _ in slots]))
+            src_status.append(torch.stack([
+                none if src is None else outs[src[0]][s][1][src[1]]
+                for _, src, _ in slots]))
+        scales = torch.tensor([sc for _, _, sc in slots], dtype=torch.float32)
+        outs.append(analyze.sharded_lk_chain_phase(
+            shards, stacked, src_nxt, src_status, scales,
+            win=opts.window_size, max_iters=opts.term_max_iters,
+            eps2=float(eps * eps), levels=levels))
+    slot_of = {i: (p, c) for p, slots in enumerate(plan)
+               for c, (i, _, _) in enumerate(slots) if i is not None}
+
+    def target(k, t):
+        """Output k of target t, its shards gathered on the first device."""
+        p, c = slot_of[t]
+        return torch.cat([o[k][c].to(devices[0], non_blocking=True)
+                          for o in outs[p]])
+
+    return tuple(torch.stack([target(k, t) for t in range(len(next_pyrs))])
+                 for k in range(3))
 
 
 # ---------------------------------------------------------------------------
@@ -462,6 +625,7 @@ def calc_optical_flow_multi_async(
     next_pyrs: List[PyramidCache],
     prev_pts: np.ndarray,
     opts: LKOptions = LKOptions(),
+    skips=None,
     *,
     devices=None,
 ) -> FlowHandle:
@@ -469,9 +633,11 @@ def calc_optical_flow_multi_async(
 
     ``devices`` (a list whose first is the pyramids' device; default that
     device alone) splits the solve over several devices by
-    :func:`split_route`; the spatial sort wraps the whole solve.  The
-    results travel from the first device to pinned host buffers behind one
-    event, which :func:`calc_optical_flow_multi_finish` waits on."""
+    :func:`split_route`; the spatial sort wraps the whole solve.  ``skips``
+    (frame offsets aligned with ``next_pyrs``) chains the fan where
+    :func:`chain_engages`.  The results travel from the first device to
+    pinned host buffers behind one event, which
+    :func:`calc_optical_flow_multi_finish` waits on."""
     pts = np.ascontiguousarray(prev_pts, np.float32).reshape(-1, 2)
     n, T = pts.shape[0], len(next_pyrs)
     dev = prev_pyr.device
@@ -485,22 +651,27 @@ def calc_optical_flow_multi_async(
     pts, inv = _spatial_sort(pts)
     pts_dev = torch.from_numpy(np.ascontiguousarray(pts)).to(
         dev, non_blocking=True)
-    stacked = [torch.stack([p.levels[lvl][0] for p in next_pyrs])
-               for lvl in range(levels)]
-    eps = min(max(opts.term_epsilon, 0.0), 10.0)
-    solve = _lk_all_levels_multi
-    route = split_route(n, T, len(devices))
-    if route:
-        from ..parallel import analyze
+    if (skips is not None and len(skips) == T
+            and chain_engages(skips, n, len(devices))):
+        nxt, status, err = _chained_dispatch(prev_pyr, next_pyrs, list(skips),
+                                             pts_dev, opts, levels, devices)
+    else:
+        stacked = [torch.stack([p.levels[lvl][0] for p in next_pyrs])
+                   for lvl in range(levels)]
+        eps = min(max(opts.term_epsilon, 0.0), 10.0)
+        solve = _lk_all_levels_multi
+        route = split_route(n, T, len(devices))
+        if route:
+            from ..parallel import analyze
 
-        solve = functools.partial(
-            analyze.sharded_lk_multi_feat if route == "features"
-            else analyze.sharded_lk_multi, devices)
-    nxt, status, err = solve(
-        prev_pyr.levels[:levels], stacked, pts_dev, float(eps * eps),
-        float(opts.min_eigen_threshold), win=opts.window_size,
-        max_iters=opts.term_max_iters, levels=levels,
-    )
+            solve = functools.partial(
+                analyze.sharded_lk_multi_feat if route == "features"
+                else analyze.sharded_lk_multi, devices)
+        nxt, status, err = solve(
+            prev_pyr.levels[:levels], stacked, pts_dev, float(eps * eps),
+            float(opts.min_eigen_threshold), win=opts.window_size,
+            max_iters=opts.term_max_iters, levels=levels,
+        )
     if inv is not None:
         # Back to the caller's order on the device, before the copy.
         inv = torch.from_numpy(inv).to(dev, non_blocking=True)

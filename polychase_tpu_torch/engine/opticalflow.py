@@ -5,9 +5,15 @@ cpp/opticalflow.cc:209-321).  For every frame: detect-or-load keypoints,
 build the LK pyramid, and track into the frames of the ±{1, 2, 4, 8} skip
 pattern, writing each pair's surviving flows to the SQLite database.
 
+- Detection is ``engine.gftt``'s: frames of ``gftt.DEVICE_SUPPRESS_MIN``
+  pixels and more take its device suppression route
+  (``gftt.device_suppress_route``, K4 on a card), smaller ones its host
+  route.
 - All targets of a source frame are one multi-target solve on the device
   (the reference's per-pair thread pool becomes a batch axis); the solve's
-  levels launch K2 and K3 on a CUDA device.
+  levels launch K2 and K3 on a CUDA device.  With ``POLYCHASE_LK_CHAIN=1``
+  the fan is solved as chained phases (``engine.lk.chain_engages``): K2
+  once per level, K3 once per level per phase.
 - Given several devices, each solve is split over them by features or by
   targets (``engine.lk.split_route``, ``parallel.analyze``), as the
   reference shards only the LK solve.  GFTT, the pyramids, their LRUs and
@@ -271,8 +277,9 @@ def _run(db: Database, video_info: VideoInfo, frame_accessor: FrameAccessor,
         pyrs2 = [get_pyramid(f2) for f2 in targets]
         _log.debug("frame %d: tracking %d features into %s", frame_id1,
                    features.shape[0], targets)
-        handle = calc_optical_flow_multi_async(pyr1, pyrs2, features,
-                                               flow_options, devices=devices)
+        handle = calc_optical_flow_multi_async(
+            pyr1, pyrs2, features, flow_options,
+            [f2 - frame_id1 for f2 in targets], devices=devices)
         pending_flows.append((frame_id1, targets, handle))
 
         # Queue the detection and pyramids of upcoming source frames and

@@ -1,7 +1,8 @@
 """Host C++ of the port (``host.cc``) with a ctypes loader.
 
 ``host.cc`` holds the BVH ray caster (refine's prim refresh on large
-meshes) and GFTT's fused quality sort + suppression.  It is built at first
+meshes), GFTT's fused quality sort + suppression and the quality order of
+the device-suppressed GFTT route (:func:`quality_order`).  It is built at first
 use with ``g++ -O3 -shared -fPIC -std=c++17`` into ``build/torch_native/``
 at the root of the checkout, under a name keyed by a hash of the source (as
 ``kernels/build.py`` keys the CUDA kernels), so an edit rebuilds and an
@@ -99,6 +100,23 @@ def native_fn(name: str, restype, argtypes):
     with _lock:
         _fns[name] = fn
     return fn
+
+
+def quality_order(vals: np.ndarray, lin: np.ndarray) -> np.ndarray:
+    """Order of GFTT candidates by quality descending, ties by the later
+    row-major position first: ``np.lexsort((-lin, -vals))``, by the native
+    ``gftt_quality_order`` (one keyed sort) where the library is built."""
+    fn = native_fn("gftt_quality_order", None, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p])
+    if fn is None:
+        return np.lexsort((-lin, -vals))
+    vals_f = np.ascontiguousarray(vals, np.float32)
+    lin_i = np.ascontiguousarray(lin, np.int64)
+    out = np.empty(len(vals_f), np.uint32)
+    fn(vals_f.ctypes.data_as(ctypes.c_void_p),
+       lin_i.ctypes.data_as(ctypes.c_void_p), ctypes.c_uint32(len(vals_f)),
+       out.ctypes.data_as(ctypes.c_void_p))
+    return out
 
 
 class BvhRaycaster:

@@ -1,8 +1,9 @@
-// Host C++ of the port: the BVH triangle-mesh ray caster and GFTT's fused
-// quality sort + greedy min-distance suppression.
+// Host C++ of the port: the BVH triangle-mesh ray caster, GFTT's fused
+// quality sort + greedy min-distance suppression and its quality order.
 //
 // The port's own copy of the parts of polychase_tpu/native/bvh.cc that it
-// calls (bvh_build, bvh_free, bvh_raycast, gftt_sort_suppress), built at
+// calls (bvh_build, bvh_free, bvh_raycast, gftt_sort_suppress,
+// gftt_quality_order), built at
 // first use by polychase_tpu_torch/native/__init__.py and loaded with ctypes.
 //
 // BVH design: binned-SAH (16 bins), max 4 triangles per leaf, iterative
@@ -487,4 +488,14 @@ extern "C" uint32_t gftt_sort_suppress(
         }
     }
     return count;
+}
+
+// Quality-descending order (ties: later row-major position first) without
+// the suppression pass: the device-suppressed GFTT route only orders its
+// survivors (polychase_tpu/native/bvh.cc:552).
+extern "C" void gftt_quality_order(
+    const float* vals, const int64_t* lin, uint32_t n, uint32_t* order_out) {
+    std::vector<KeyedIdx> keyed;
+    quality_sort(vals, lin, n, keyed);
+    for (uint32_t i = 0; i < n; i++) order_out[i] = keyed[i].idx;
 }

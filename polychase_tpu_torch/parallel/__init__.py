@@ -17,7 +17,7 @@ the split.
 - Sharded (``raycast``, ``sharded``, ``analyze``): one computation spread
   over the devices: the ray cast over its ray groups, refine's normal
   equations over the flow edges, analyze's LK solve over its targets or its
-  features.  ``engine.refiner.refine_trajectory`` and
+  features, and the chained skip fan's phases over its features.  ``engine.refiner.refine_trajectory`` and
   ``engine.opticalflow.generate_optical_flow_database`` take them when
   given several devices.
 """

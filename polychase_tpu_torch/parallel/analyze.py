@@ -16,18 +16,29 @@ tensors, so the reference's XLA and Pallas variants are one function here.
 The copies are queued per solve; the results are gathered on the first
 device, in the unsharded call's layout.  Shards are contiguous and may be
 uneven: the reference's padding of T with copies of the source and of N to
-128-lane groups is TPU layout.  The chained fan's sharded phases
-(``sharded_lk_chain_prep``, ``sharded_lk_chain_phase``) are not ported.
+128-lane groups is TPU layout.
+
+The chained fan (``engine.lk._chained_dispatch``) splits the features the
+same way (``polychase_tpu/parallel/analyze.py:263-388``):
+:func:`sharded_lk_chain_prep` runs K2 once per level on each device's shard,
+and :func:`sharded_lk_chain_phase` runs one phase on every shard, each
+seeded from its own shard of the earlier phases, which stay on their
+devices.  The one gather on the first device follows the last phase.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, NamedTuple, Sequence
 
 import torch
 
 from ..backend import current
-from ..engine.lk import Level, _lk_all_levels_multi
+from ..engine.lk import (
+    Level,
+    _lk_all_levels_multi,
+    lk_chain_phase,
+    lk_chain_prep,
+)
 from . import resolve_devices, shards
 
 
@@ -84,3 +95,54 @@ def sharded_lk_multi_feat(devices, prev_levels: Sequence[Level],
                 prev, nxt, pts[lo:hi].to(dev, non_blocking=True), eps2,
                 min_eig_thr, win=win, max_iters=max_iters, levels=levels))
     return _gather(outs, devices[0], 1)
+
+
+class ChainShard(NamedTuple):
+    """One device's shard of a chained fan."""
+
+    device: torch.device
+    levels: list          # the source levels, copied to the device
+    pts: torch.Tensor     # (n, 2), the shard's features
+    preps: list           # K2's output at every level, on the device
+
+
+def sharded_lk_chain_prep(devices, prev_levels: Sequence[Level],
+                          pts: torch.Tensor, *, win: int, min_eig_thr: float,
+                          levels: int) -> List[ChainShard]:
+    """The hoisted source prep of a chained fan with the features split
+    contiguously over ``devices`` (one shard on one device): each device's
+    copy of the source levels, its points and K2's output at every level."""
+    devices = resolve_devices(devices)
+    out = []
+    for dev, (lo, hi) in zip(devices, shards(int(pts.shape[0]),
+                                             len(devices))):
+        prev = _levels_on(prev_levels[:levels], dev)
+        p = pts[lo:hi].to(dev, non_blocking=True)
+        with current(dev):
+            out.append(ChainShard(dev, prev, p, lk_chain_prep(
+                prev, p, win=win, min_eig_thr=min_eig_thr, levels=levels)))
+    return out
+
+
+def sharded_lk_chain_phase(chain: Sequence[ChainShard],
+                           next_images_stacked: Sequence[torch.Tensor],
+                           src_nxt: Sequence[torch.Tensor],
+                           src_status: Sequence[torch.Tensor],
+                           scales: torch.Tensor, *, win: int, max_iters: int,
+                           eps2: float, levels: int) -> list:
+    """One chained phase (T slots) on every shard of ``chain``:
+    ``next_images_stacked`` per level (T, Hp, Wp), copied to each device;
+    ``src_nxt[i]`` (T, n_i, 2) and ``src_status[i]`` (T, n_i) the seeding
+    results of shard i, on its device; ``scales`` (T,).  Returns each
+    shard's ``(next, status, err)`` on its device."""
+    outs = []
+    for sh, nxt_s, st_s in zip(chain, src_nxt, src_status):
+        dev = sh.device
+        nxt = [s.to(dev, non_blocking=True)
+               for s in next_images_stacked[:levels]]
+        with current(dev):
+            outs.append(lk_chain_phase(
+                sh.levels, sh.preps, nxt, sh.pts, nxt_s, st_s,
+                scales.to(dev, non_blocking=True), win=win,
+                max_iters=max_iters, eps2=eps2, levels=levels))
+    return outs

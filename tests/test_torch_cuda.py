@@ -1,5 +1,7 @@
-"""K1 (csrc/pnp_lm.cu), K2 (csrc/lk_prep.cu) and K3 (csrc/lk_iter.cu)
-against their plain torch versions on a CUDA card, refine and pin mode
+"""K1 (csrc/pnp_lm.cu), K2 (csrc/lk_prep.cu), K3 (csrc/lk_iter.cu) and K4
+(csrc/gftt_suppress.cu) against their plain torch versions on a CUDA card,
+GFTT's device route against its host route and the chained skip fan's K2
+and K3 launches (on one card and split by features), refine and pin mode
 on the card against the same work on the CPU, the segment-parallel track
 (one K1 launch a step for every segment), the sharded analyze and refine
 (two shards on one card, or every card), the three kernels on a card other
@@ -779,3 +781,126 @@ def test_kernels_launch_on_their_tensors_card(card):
     for a, b in zip(got, ref):
         assert a.device == c1
         torch.testing.assert_close(a.cpu(), b.cpu(), rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# K4 (GFTT suppression) and the chained skip fan
+# ---------------------------------------------------------------------------
+
+
+def _qmaps(card):
+    """The quality map of a 640×480 panning-clip frame (its NMS candidates)
+    and a noise map whose qualities all tie."""
+    from polychase_tpu_torch.engine import gftt
+
+    frame = panning_clip(np.random.default_rng(0), 1, 640, 480)[0]
+    img = torch.as_tensor(frame, device=card)
+    eig, cand = gftt.gftt_response(img.to(torch.float32), None, 0.01, 0.04)
+    rng = np.random.default_rng(1)
+    ties = np.where(rng.random((480, 640)) < 0.3, 0.5, 0.0).astype(
+        np.float32)
+    return [torch.where(cand, eig, 0.0).contiguous(),
+            torch.as_tensor(ties, device=card)]
+
+
+@pytest.mark.parametrize("d", [1.0, 2.5, 5.0, 8.0])
+def test_gftt_suppress_matches_plain(card, d):
+    """The kept map equal to the bit, converged and rounds equal (both
+    compare qualities and indices only), one launch a call.  The frame's
+    map converges; where every quality ties, the later index decides, and
+    its chains can outlast the round cap in both.  Cut at 2 rounds and
+    resumed from its state in batches of 2, the fixed point ends on the
+    uncut kept map."""
+    from polychase_tpu_torch.engine import gftt
+    from polychase_tpu_torch.kernels import gftt_suppress
+
+    offs = gftt._circle_offsets(d)
+    for i, q in enumerate(_qmaps(card)):
+        before = gftt_suppress.launches
+        got = gftt_suppress.gftt_suppress(q, offs)
+        assert gftt_suppress.launches == before + 1
+        ref = gftt.suppress_plain(q, offs)
+        assert torch.equal(got[0], ref[0]) and int(got[0].sum()) > 0
+        assert bool(got[1]) == bool(ref[1]) and (i == 1 or bool(got[1]))
+        assert int(got[2]) == int(ref[2])
+    # Cut at 2 rounds, on the map whose qualities all tie, then resumed.
+    got, ref = (gftt_suppress.gftt_suppress(q, offs, 2),
+                gftt.suppress_plain(q, offs, 2))
+    assert torch.equal(got[0], ref[0])
+    assert bool(got[1]) == bool(ref[1])
+    whole = gftt.suppress_plain(q, offs, 100_000)
+    kept, conv, rounds, state = got[0], got[1], int(got[2]), got[3]
+    while not bool(conv):
+        kept, conv, r, state = gftt_suppress.gftt_suppress(q, offs, 2, state)
+        rounds += int(r)
+    assert torch.equal(kept, whole[0]) and bool(whole[1])
+    assert rounds == int(whole[2])
+
+
+def test_gftt_device_route_matches_host_route_on_card(card, monkeypatch):
+    from polychase_tpu_torch.engine import gftt
+    from polychase_tpu_torch.kernels import gftt_suppress
+
+    frame = panning_clip(np.random.default_rng(2), 1, 640, 480)[0]
+    monkeypatch.setattr(gftt, "DEVICE_SUPPRESS_MIN", 1 << 62)
+    host = gftt.gftt_finish(gftt.gftt_dispatch(frame, device=card))
+    monkeypatch.setattr(gftt, "DEVICE_SUPPRESS_MIN", 0)
+    k4, resumed = gftt_suppress.launches, gftt.resumed_frames
+    got = good_features_to_track(frame, device=card)
+    assert gftt_suppress.launches == k4 + 1
+    assert gftt.resumed_frames == resumed
+    assert got[0].shape[0] > 1000
+    for a, b in zip(got, host):
+        np.testing.assert_array_equal(a, b)
+    # Cut at one round a batch, the frame is finished on the card.
+    monkeypatch.setattr(gftt, "MAX_ROUNDS", 1)
+    got = good_features_to_track(frame, device=card)
+    assert gftt.resumed_frames == resumed + 1
+    assert gftt_suppress.launches > k4 + 2
+    for a, b in zip(got, host):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_chained_fan_launches(lk_case, monkeypatch):
+    """Skips -2, -1, 1, 2 chained: K2 once per level, K3 once per level of
+    each of the two phases; the ±1 flows as the unchained solve's."""
+    pts, src, tgts = lk_case
+    skips = [-2, -1, 1, 2]
+    host_pts = pts.cpu().numpy()
+    un = lk.calc_optical_flow_multi(src, tgts, host_pts)
+    monkeypatch.setenv("POLYCHASE_LK_CHAIN", "1")
+    p0, i0 = lk_prep.launches, lk_iter.launches
+    got = lk.calc_optical_flow_multi_finish(lk.calc_optical_flow_multi_async(
+        src, tgts, host_pts, OPTS, skips))
+    L = src.num_levels
+    assert (lk_prep.launches - p0, lk_iter.launches - i0) == (L, 2 * L)
+    for i in (1, 2):
+        both = got[1][i] & un[1][i]
+        assert both.mean() > 0.9
+        d = np.linalg.norm(got[0][i][both] - un[0][i][both], axis=-1)
+        assert np.median(d) < 0.05
+
+
+def test_chained_split_matches_one_card(lk_case, monkeypatch):
+    """The chained fan split by features over ``_split_devices()``: the
+    one-card chained result within 1e-4 px, K2 once per level and K3 once
+    per level per phase on every shard."""
+    pts, src, tgts = lk_case
+    skips = [-2, -1, 1, 2]
+    host_pts = pts.cpu().numpy()
+    monkeypatch.setenv("POLYCHASE_LK_CHAIN", "1")
+    monkeypatch.setattr(lk, "FEAT_SHARD_MIN", 1)
+    one = lk.calc_optical_flow_multi_finish(lk.calc_optical_flow_multi_async(
+        src, tgts, host_pts, OPTS, skips))
+    devices = _split_devices()
+    p0, i0 = lk_prep.launches, lk_iter.launches
+    split = lk.calc_optical_flow_multi_finish(
+        lk.calc_optical_flow_multi_async(src, tgts, host_pts, OPTS, skips,
+                                         devices=devices))
+    L, D = src.num_levels, len(devices)
+    assert (lk_prep.launches - p0, lk_iter.launches - i0) == (L * D,
+                                                              2 * L * D)
+    np.testing.assert_array_equal(split[1], one[1])
+    both = split[1]
+    np.testing.assert_allclose(split[0][both], one[0][both], rtol=0,
+                               atol=1e-4)

@@ -1,10 +1,12 @@
 """The port runs with jax and the JAX package unimportable: a tiny track, a
 tiny analyze, a tiny refine followed by a pin drag, the tracker and
-optical-flow threads of its ``polychase_core``, and the segment-parallel
+optical-flow threads of its ``polychase_core``, the segment-parallel
 track and refine (the refine through ``RefineSegmentsThread``) with the
-sharded modules and a refine split over two CPU devices, each in a
-fresh process whose import system refuses ``jax``, ``jaxlib``,
-``polychase_tpu`` and every ``polychase_tpu.*`` module
+sharded modules and a refine split over two CPU devices, analyze's GFTT
+device suppression route and its chained skip fan (on one device and split
+by features over two), and an import of every module of the package and of
+``chip_smoke.py``, each in a fresh process whose import system refuses
+``jax``, ``jaxlib``, ``polychase_tpu`` and every ``polychase_tpu.*`` module
 (``polychase_tpu_torch`` is another top-level name and stays
 importable)."""
 
@@ -324,6 +326,72 @@ SEGMENTS = REFUSE_JAX + textwrap.dedent(
 )
 
 
+ANALYZE_ROUTES = REFUSE_JAX + textwrap.dedent(
+    """
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+
+    from polychase_tpu_torch.engine import gftt, lk
+    from polychase_tpu_torch.engine.opticalflow import (
+        VideoInfo, generate_optical_flow_database,
+    )
+    from polychase_tpu_torch.io.database import Database
+    from polychase_tpu_torch.kernels import gftt_suppress
+    from polychase_tpu_torch.parallel.analyze import (
+        sharded_lk_chain_phase, sharded_lk_chain_prep,
+    )
+    from polychase_tpu_torch.synthetic import panning_clip
+
+    assert callable(gftt_suppress.gftt_suppress)
+    assert callable(sharded_lk_chain_prep) and callable(sharded_lk_chain_phase)
+    os.environ["POLYCHASE_LK_CHAIN"] = "1"
+    gftt.DEVICE_SUPPRESS_MIN = 0
+    lk.FEAT_SHARD_MIN = 1
+    frames = panning_clip(np.random.default_rng(0), 6, 128, 96, (2, 1))
+    dbs = []
+    with tempfile.TemporaryDirectory() as td:
+        for device in ("cpu", ["cpu"] * 2):
+            path = os.path.join(td, f"flow{len(dbs)}.db")
+            generate_optical_flow_database(
+                VideoInfo(128, 96, 0, 6), lambda f: frames[f], None, path,
+                device=device)
+            db = Database(path)
+            dbs.append([(db.read_keypoints(f),
+                         db.read_image_pair_flow(f, f + 1).tgt_kps)
+                        for f in range(5)])
+            db.close()
+    for (k0, t0), (k1, t1) in zip(*dbs):
+        assert k0.shape[0] > 50
+        np.testing.assert_array_equal(k0, k1)
+        np.testing.assert_array_equal(t0, t1)
+    assert gftt.resumed_frames == 0
+    assert_nothing_leaked()
+    print("analyzed on the device route, chained, without jax")
+    """
+)
+
+
+IMPORT_ALL = REFUSE_JAX + textwrap.dedent(
+    """
+    import importlib
+    import pkgutil
+
+    import polychase_tpu_torch
+
+    names = [m.name for m in pkgutil.walk_packages(
+        polychase_tpu_torch.__path__, "polychase_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke  # noqa: F401
+
+    assert_nothing_leaked()
+    print("imported", len(names), "modules and chip_smoke without jax")
+    """
+)
+
+
 def _run(script):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -362,3 +430,15 @@ def test_port_segments_run_without_jax():
     proc = _run(SEGMENTS)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "tracked and refined segments without jax" in proc.stdout
+
+
+def test_port_analyze_routes_run_without_jax():
+    proc = _run(ANALYZE_ROUTES)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "analyzed on the device route, chained, without jax" in proc.stdout
+
+
+def test_every_module_and_chip_smoke_import_without_jax():
+    proc = _run(IMPORT_ALL)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "modules and chip_smoke without jax" in proc.stdout

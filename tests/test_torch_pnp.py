@@ -2,8 +2,9 @@
 the CPU arm of the K1 wrapper) against the JAX package's XLA solve and its
 Pallas kernel run in interpret mode, on the cases of test_pnp_pallas.py and
 with its tolerances: pose atol 5e-4 (1e-3 with free intrinsics), inlier
-ratio atol 1e-3, cost rtol 1e-3.  The solvers sum in different orders, so
-they agree to float tolerance, not bitwise."""
+ratio atol 1e-3, cost rtol 1e-3 (for the 4- to 8-point pin solves, of the
+range of JAX's costs over orders of the points).  The solvers sum in
+different orders, so they agree to float tolerance, not bitwise."""
 
 import numpy as np
 import pytest
@@ -146,13 +147,24 @@ def test_pin_sizes(n, opt_pp):
     X, x, w, mask, params = _scene_cv(n=n, f_err=0.95)
     opts = JaxBundleOptions(loss_type=0)
     got = _port(X, x, w, mask, params, opts, opt_f=True, opt_pp=opt_pp)
-    args = [jnp.asarray(a) for a in (X, x, w, mask, params)]
-    ref = np.asarray(jax.device_get(jax_solve_arrays(
-        *args, opt_f=True, opt_pp=opt_pp, opts=opts)))
-    np.testing.assert_allclose(got[:7], ref[:7], atol=1e-3)
-    np.testing.assert_allclose(got[7:11], ref[7:11], rtol=2e-3, atol=1.0)
-    np.testing.assert_allclose(got[13], ref[13], rtol=1e-3)
-    np.testing.assert_allclose(got[18], ref[18], atol=1e-3)
+
+    def ref(p):
+        args = [jnp.asarray(a) for a in (X[p], x[p], w[p], mask[p], params)]
+        return np.asarray(jax.device_get(jax_solve_arrays(
+            *args, opt_f=True, opt_pp=opt_pp, opts=opts)))
+
+    # The final cost of these tiny solves moves by ~2e-3 of itself when
+    # the JAX solve merely takes its points in another order, so the cost
+    # is held within 1e-3 of the range of JAX's costs over the points in
+    # their order and in four shuffled ones.
+    orders = [np.arange(n)] + [np.random.default_rng(s).permutation(n)
+                               for s in range(1, 5)]
+    refs = np.stack([ref(p) for p in orders])
+    np.testing.assert_allclose(got[:7], refs[0, :7], atol=1e-3)
+    np.testing.assert_allclose(got[7:11], refs[0, 7:11], rtol=2e-3, atol=1.0)
+    assert (refs[:, 13].min() * (1 - 1e-3) <= got[13]
+            <= refs[:, 13].max() * (1 + 1e-3))
+    np.testing.assert_allclose(got[18], refs[0, 18], atol=1e-3)
 
 
 def test_batched_equals_single_solves():

@@ -13,8 +13,11 @@ Tolerances:
   own sequential ``refine_trajectory`` (the JAX test's bar);
 - one stack over several devices: within 1e-6 of the one-device run;
 - the batched banded solve: within 1e-6 of a loop of unbatched calls;
-- the LM schedule from the same state: counted iterations and invalid
-  steps equal, final cost within 1e-4 relative.
+- the LM schedule from the same state: counted iterations equal, final
+  cost within 1e-4 relative of the range of JAX's, and invalid steps
+  among the counts JAX takes when its edges and matches come in other
+  orders (its last, stagnating step is accepted in some of those orders
+  and refused in others).
 """
 
 import numpy as np
@@ -180,22 +183,41 @@ def test_lm_schedule_matches_jax(scene, seg, ppc):  # noqa: F811
     jparams = JR.traj_to_params(traj)
     m = jnp.eye(4)
     jtri = scene["mesh"].triangle_corners()
-    prims, cost0 = JR.refresh_prims_and_cost(
-        jparams, jdata, scene["mesh"], m, m, jtri, jnp.float32(1.0),
-        loss_type=CAUCHY)
     n_iters = 22
-    scal0 = jnp.stack([cost0, jnp.float32(1e-5), 2.0, 1.0, 0.0, 0.0, 0.0,
-                       jnp.float32(n_iters - 2)]).astype(jnp.float32)
     tol = (1e-10, 1e-8, 1e-10, 1e10, 1e-5)
     Pn = traj.count * ppc
     jbounds = JC.intrinsics_bounds(traj.get(traj.first_frame).intrinsics)
     kw = dict(loss_type=CAUCHY, opt_f=ppc == 9, opt_pp=False, ppc=ppc)
-    out = JR.lm_chunk_device(
-        jparams, prims, jnp.zeros((Pn, Pn), jnp.float32),
-        jnp.zeros((Pn,), jnp.float32), scal0, jdata, scene["mesh"], m, m,
-        jtri, jnp.float32(1.0), jbounds, jnp.asarray(tol, jnp.float32),
-        n_iters=n_iters, **kw)
+
+    def reference(data):
+        prims, cost0 = JR.refresh_prims_and_cost(
+            jparams, data, scene["mesh"], m, m, jtri, jnp.float32(1.0),
+            loss_type=CAUCHY)
+        scal0 = jnp.stack([cost0, jnp.float32(1e-5), 2.0, 1.0, 0.0, 0.0,
+                           0.0, jnp.float32(n_iters - 2)]).astype(jnp.float32)
+        out = JR.lm_chunk_device(
+            jparams, prims, jnp.zeros((Pn, Pn), jnp.float32),
+            jnp.zeros((Pn,), jnp.float32), scal0, data, scene["mesh"], m, m,
+            jtri, jnp.float32(1.0), jbounds, jnp.asarray(tol, jnp.float32),
+            n_iters=n_iters, **kw)
+        return prims, scal0, out
+
+    prims, scal0, out = reference(jdata)
     jscal = np.asarray(out[4])
+    # The same problem with its edges and their matches in four shuffled
+    # orders: only the reference's order of summation changes.
+    E, M = jdata.src_kp.shape
+    shuffled = []
+    for s in range(1, 5):
+        rng = np.random.default_rng(s)
+        pe, pm = rng.permutation(E), rng.permutation(M)
+        shuffled.append(np.asarray(reference(jdata._replace(
+            src_frame=jdata.src_frame[pe], tgt_frame=jdata.tgt_frame[pe],
+            src_kp=jdata.src_kp[pe][:, pm], tgt_px=jdata.tgt_px[pe][:, pm],
+            match_valid=jdata.match_valid[pe][:, pm],
+            edge_weight=jdata.edge_weight[pe],
+            edge_valid=jdata.edge_valid[pe]))[2][4]))
+    jscals = np.stack([jscal] + shuffled)
 
     tmesh = convert.mesh(scene["mesh"], device="cpu")
     tbounds = TC.intrinsics_bounds(convert.intrinsics(
@@ -209,9 +231,11 @@ def test_lm_schedule_matches_jax(scene, seg, ppc):  # noqa: F811
     TR.run_lockstep([lm], n_iters)
     tparams, tscal = lm.params, lm.scal[0].numpy()
     assert tscal[TR.ITERS] == jscal[TR.ITERS] >= 2
-    assert tscal[TR.INVALID] == jscal[TR.INVALID]
+    assert tscal[TR.INVALID] in set(jscals[:, TR.INVALID].tolist())
     assert tscal[TR.DONE] == jscal[TR.DONE] == 1.0
-    assert abs(tscal[TR.COST] - jscal[TR.COST]) <= COST_RTOL * jscal[TR.COST]
+    costs = jscals[:, TR.COST]
+    assert (costs.min() * (1 - COST_RTOL) <= tscal[TR.COST]
+            <= costs.max() * (1 + COST_RTOL))
     np.testing.assert_allclose(tparams.t.numpy(), np.asarray(out[0].t),
                                atol=POSE_ATOL)
 
