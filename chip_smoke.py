@@ -36,8 +36,8 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    frame, every skip pair, the flows of skips ±1 and ±2 against the ground
    truth -s·(7, 4), the share of flows kept at ±1, that K2 and K3
    launched once per level of every solve and K4 once a frame where the
-   frame size takes GFTT's device route; prints analyze frames/s and the
-   device busy share.
+   frame size takes GFTT's device route, one CUDA launch a call; prints
+   analyze frames/s and the device busy share.
 6. Tracking phase: a synthetic 1920×1080, f = 1800, 120-frame orbit clip
    over a 20,224-triangle sphere with 2048 keypoints per frame and 0.3 px
    flow noise, written to a flow DB, tracked through ``track_sequence``
@@ -120,16 +120,19 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     cost within 1e-4 (relative) and every pose within 1e-4 rad and 1e-4.
     Then analyze frames/s and refine seconds, one device against the list,
     in turns (one, list, list, one).
-12. Analyze-routes phase: K4 against its plain version on the clip's
-    response maps (every 4th frame) and one 3840×2160 noise frame at
-    d ∈ {1, 2.5, 5, 8} (kept maps equal to the bit, converged, the same
+12. Analyze-routes phase: K4 against its plain version
+    (``suppress_plain`` + ``_compact_kept``) on the clip's response maps
+    (every 4th frame) and one 3840×2160 noise frame at d ∈ {1, 2.5, 5, 8}
+    (kept maps and kept lists equal to the bit, converged, the same
     rounds), GFTT's device-route corners against its host route's (equal,
-    in the same order), K4's time, plain time and bound, K4 cut at 2
+    in the same order); K4 on clip frame 8 at d 5, its floor (d 1: one
+    round, no neighbour reads), its plain time and its bound; K4 cut at 2
     rounds a call and resumed from its state against the uncut call, the
-    rounds K4 runs on each clip frame; one frame's GFTT
-    by route at 640×480, 1280×720, 1920×1080 and 3840×2160 in turns (host,
-    device, device, host), and the size from which the device route wins
-    both turns beside ``gftt.DEVICE_SUPPRESS_MIN``; the clip analyzed with
+    rounds K4 runs on each clip frame; one frame's GFTT by route at 80×60,
+    160×120, 320×240, 640×480, 1280×720, 1920×1080 and 3840×2160 in turns
+    (host, device, device, host), and the size from which the device route
+    wins both turns beside ``gftt.DEVICE_SUPPRESS_MIN``; analyze's keypoints
+    with GFTT's device route equal to its host route's; the clip analyzed with
     ``POLYCHASE_LK_CHAIN=1`` (analyze's gates; the unchained DB's
     keypoints and pairs; tests/test_opticalflow.py:119-170's gates at
     skips ±1/±2: each pair's shared flows within a median 0.05 px, > 0.97
@@ -143,8 +146,9 @@ Usage, from the root of a checkout on a machine with a CUDA card:
 13. Prints the card, the kernels' JSON line (time, plain time, bound and
     what sets it, launches on the main path (the analyze, tracking and pin
     phases) and apart in the surface, segments, sharded and routes phases,
-    for K4 also the CUDA launches its calls queued and the rounds that did
-    work on the main path's frames, largest difference) and, last,
+    for K4 also its CUDA launches (one a call), the rounds of the main
+    path's frames, both neighbour reads' times and its floor, largest
+    difference) and, last,
     ``{"ok": true, ...}``.
 
 Any failed check raises, so the script exits non-zero without the last line.
@@ -795,11 +799,12 @@ def analyze_phase(device, frames, workdir):
 
     warm = run(os.path.join(workdir, "analyze_warm.db"))
     lk_prep.launches = lk_iter.launches = gftt_suppress.launches = 0
-    gftt_suppress.cuda_launches = 0
+    # K4's library counts the cooperative launches the runtime accepted.
+    queued0 = gftt_suppress.cuda_launches()
     path = os.path.join(workdir, "analyze.db")
     seconds = run(path)
     launches = (lk_prep.launches, lk_iter.launches, gftt_suppress.launches)
-    k4_queued = gftt_suppress.cuda_launches
+    k4_queued = gftt_suppress.cuda_launches() - queued0
     pwall, _, busy_ms, busy = profile_split(
         lambda: run(os.path.join(workdir, "analyze_profiled.db")), device, ())
     print(f"  clip: {width}x{height}")
@@ -812,6 +817,9 @@ def analyze_phase(device, frames, workdir):
     if launches != (levels * solves, levels * solves, k4):
         fails.append(f"K2/K3/K4 launched {launches} times for {solves} "
                      f"solves of {levels} levels and {k4} K4 frames")
+    if k4_queued != launches[2]:
+        fails.append(f"K4's {launches[2]} calls made {k4_queued} CUDA "
+                     f"launches, want one each")
     if not busy_ms > 0.0:
         fails.append("the profiler saw no work on the device")
     if fails:
@@ -821,7 +829,7 @@ def analyze_phase(device, frames, workdir):
           f"{launches[1]} (= {solves} solves x {levels} levels) / "
           f"{launches[2]} (GFTT device route from "
           f"{gftt.DEVICE_SUPPRESS_MIN} px; {k4_queued} CUDA launches "
-          f"queued by K4)")
+          f"by K4, one a call)")
     print(f"  analyze: {n} frames in {seconds:.3f} s = {fps:.2f} frames/s "
           f"(warm-up run {warm:.3f} s); profiled run {pwall:.4f} s, device "
           f"time {busy_ms:.3f} ms, busy share {busy:.4f}")
@@ -2267,7 +2275,8 @@ def sharded_phase(device, frames, analyze_db, refine, smi):
 
 K4_DISCS = (1.0, 2.5, 5.0, 8.0)
 # Frame sizes of the suppression crossover (host route against device).
-ROUTE_SIZES = ((640, 480), (1280, 720), (1920, 1080), (3840, 2160))
+ROUTE_SIZES = ((80, 60), (160, 120), (320, 240), (640, 480), (1280, 720),
+               (1920, 1080), (3840, 2160))
 ROUTE_REPS = 5
 # gftt.DEVICE_SUPPRESS_MIN above any frame: every frame on the host route.
 HOST_ONLY = 1 << 62
@@ -2360,8 +2369,9 @@ def routes_phase(device, frames, analyze_db, smi):
           f"{opts.min_distance:g}; frames resumed on the card so far "
           f"{gftt.resumed_frames}")
 
-    # K4 against its plain version: the clip's response maps (every 4th
-    # frame) and one 4K noise frame, at each disc.
+    # K4 against its plain version (suppress_plain + _compact_kept): the
+    # clip's response maps (every 4th frame) and one 4K noise frame, at
+    # each disc: the kept map, the kept list, rounds and converged.
     big = panning_clip(np.random.default_rng(5), 1, 3840, 2160,
                        PAN_STEP)[0]
     images = [("clip frame %d" % f, frames[f]) for f in range(0, n, 4)]
@@ -2372,26 +2382,31 @@ def routes_phase(device, frames, analyze_db, smi):
         eig, cand = gftt.gftt_response(img.to(torch.float32), None,
                                        opts.quality_level, opts.harris_k)
         q = torch.where(cand, eig, 0.0).contiguous()
+        h, w = frame.shape
         line = []
         for d in K4_DISCS:
             offs = gftt._circle_offsets(d)
-            got = gftt_suppress.gftt_suppress(q, offs)
+            k = gftt.kept_capacity(h, w, d)
+            got = gftt_suppress.gftt_suppress_kept(q, offs, k)
             ref = gftt.suppress_plain(q, offs)
-            same = torch.equal(got[0], ref[0])
-            k4_err = max(k4_err, float((got[0].float()
-                                        - ref[0].float()).abs().max()))
-            conv = (bool(got[1]), bool(ref[1]))
-            line.append(f"d {d:g}: {int(got[0].sum())} kept, "
-                        f"{int(got[2])} rounds"
-                        + ("" if same and conv == (True, True) else
-                           " (DIFFERS)"))
-            if not same or conv != (True, True) or int(got[2]) != int(
-                    ref[2]):
-                fails.append(f"K4 vs plain on {name} at d {d:g}: kept "
-                             f"{'equal' if same else 'DIFFER'}, converged "
-                             f"{conv}, rounds {int(got[2])} / {int(ref[2])}")
-        print(f"  K4 vs plain, {name} ({int(cand.sum())} candidates): "
-              + "; ".join(line))
+            want = gftt._compact_kept(q, ref[0], k)
+            same = (torch.equal(got[5] >= 2, ref[0]) and all(
+                torch.equal(a, b) for a, b in zip(got[:3], want)))
+            k4_err = max(k4_err, float(((got[5] >= 2).float()
+                                        - ref[0].float()).abs().max()),
+                         float((got[0] - want[0]).abs().max()))
+            conv = (bool(got[3]), bool(ref[1]))
+            agree = same and conv == (True, True) and int(got[4]) == int(
+                ref[2])
+            line.append(f"d {d:g}: {int(got[2])} kept, {int(got[4])} "
+                        f"rounds" + ("" if agree else " (DIFFERS)"))
+            if not agree:
+                fails.append(f"K4 vs plain on {name} at d {d:g}: kept map "
+                             f"and list {'equal' if same else 'DIFFER'}, "
+                             f"converged {conv}, rounds {int(got[4])} / "
+                             f"{int(ref[2])}")
+        print(f"  K4 vs plain, {name} ({int(cand.sum())} candidates; kept "
+              f"maps, kept lists, rounds and converged): " + "; ".join(line))
         # The device route's corners against the host route's, at every
         # disc: equal, in the same order.
         corners = {}
@@ -2412,30 +2427,40 @@ def routes_phase(device, frames, analyze_db, smi):
                     and np.array_equal(dev_q, host_q)):
                 fails.append(f"device-route corners differ from the host "
                              f"route's on {name} at d {d:g}")
-        h, w = frame.shape
         print(f"    device-route corners (equal to the host route's unless "
               f"a failure says so): {corners}; the kept buffer at d 5 holds "
-              f"{int((w / 5 + 2) * (h / 5 + 2) * 1.16)}")
-    # K4 and its plain version timed on a clip frame at the default disc.
+              f"{gftt.kept_capacity(h, w, 5.0)}")
+    # K4 timed on a clip frame at the default disc, as the main path calls
+    # it; its floor (the same frame at d 1: one round, no neighbour reads)
+    # and its plain version.
     img = torch.as_tensor(frames[PAN_SOURCE], device=device)
     eig, cand = gftt.gftt_response(img.to(torch.float32), None,
                                    opts.quality_level, opts.harris_k)
     q = torch.where(cand, eig, 0.0).contiguous()
     offs = gftt._circle_offsets(opts.min_distance)
-    k4_ms = event_ms(lambda: gftt_suppress.gftt_suppress(q, offs), 20)
-    k4_plain = event_ms(lambda: gftt.suppress_plain(q, offs), 3)
-    whole = gftt_suppress.gftt_suppress(q, offs)
-    rounds = int(whole[2])
-    # Cut at 2 rounds a call and resumed from its state: the uncut result.
-    cut = gftt_suppress.gftt_suppress(q, offs, 2)
-    state, cut_rounds, calls = cut[3], int(cut[2]), 1
-    while not bool(cut[1]):
-        cut = gftt_suppress.gftt_suppress(q, offs, 2, state)
-        state, cut_rounds, calls = cut[3], cut_rounds + int(cut[2]), calls + 1
+    k = gftt.kept_capacity(height, width, opts.min_distance)
+
+    def k4(o=offs):
+        return lambda: gftt_suppress.gftt_suppress_kept(q, o, k)
+
+    k4_ms = event_ms(k4(), 20)
+    floor_ms = event_ms(k4(gftt._circle_offsets(1.0)), 20)
+    k4_plain = event_ms(lambda: gftt._compact_kept(
+        q, gftt.suppress_plain(q, offs)[0], k), 3)
+    whole = gftt_suppress.gftt_suppress_kept(q, offs, k)
+    rounds = int(whole[4])
+    # Cut at 2 rounds a call and resumed from its state: the uncut kept
+    # list and rounds.
+    cut = gftt_suppress.gftt_suppress_kept(q, offs, k, 2)
+    cut_rounds, calls = int(cut[4]), 1
+    while not bool(cut[3]):
+        cut = gftt_suppress.gftt_suppress_kept(q, offs, k, 2, cut[5])
+        cut_rounds, calls = cut_rounds + int(cut[4]), calls + 1
+    resumed_same = all(torch.equal(a, b) for a, b in zip(cut[:3], whole[:3]))
     print(f"  K4 cut at 2 rounds a call: {calls} calls, {cut_rounds} rounds, "
-          f"kept map {'equal' if torch.equal(cut[0], whole[0]) else 'DIFFERS'}"
-          f" to the uncut call's")
-    if not torch.equal(cut[0], whole[0]) or cut_rounds != rounds:
+          f"kept list {'equal' if resumed_same else 'DIFFERS'} to the uncut "
+          f"call's")
+    if not resumed_same or cut_rounds != rounds:
         fails.append("K4 resumed from its state differs from the uncut call")
     # The rounds K4 runs on each of the main path's frames (their response
     # maps at the default options, as the analyze phase suppressed them).
@@ -2444,18 +2469,15 @@ def routes_phase(device, frames, analyze_db, smi):
         fi = torch.as_tensor(frame, device=device).to(torch.float32)
         e, c = gftt.gftt_response(fi, None, opts.quality_level,
                                   opts.harris_k)
-        clip_rounds.append(int(gftt_suppress.gftt_suppress(
-            torch.where(c, e, 0.0).contiguous(), offs)[2]))
+        clip_rounds.append(int(gftt_suppress.gftt_suppress_kept(
+            torch.where(c, e, 0.0).contiguous(), offs, 1)[4]))
     print(f"  K4 rounds on the clip's {n} frames at d {opts.min_distance:g}: "
-          f"{clip_rounds} ({sum(clip_rounds)} in all, {gftt.MAX_ROUNDS} "
-          f"queued a frame)")
+          f"{clip_rounds} ({sum(clip_rounds)} in all)")
     k4_b = k4_bound(height, width, rounds)
-    key_bytes_ms = rounds * 2 * 8 * height * width / PEAK_BYTES_S * 1e3
-    print(f"  K4, clip frame {PAN_SOURCE} at d {opts.min_distance:g}: "
-          f"{k4_ms:.4f} ms ({rounds} rounds of {gftt.MAX_ROUNDS} queued; "
-          f"plain {k4_plain:.4f} ms; bound {k4_b[0]:.5f} ms by {k4_b[1]}, "
-          f"{k4_b[0] / k4_ms:.4f} of it; two passes over an 8-byte key map "
-          f"a round would take {key_bytes_ms:.4f} ms)")
+    print(f"  K4, clip frame {PAN_SOURCE} at d {opts.min_distance:g}, "
+          f"{rounds} rounds in one launch: {k4_ms:.4f} ms; floor (d 1) "
+          f"{floor_ms:.4f} ms; plain {k4_plain:.4f} ms; bound "
+          f"{k4_b[0]:.5f} ms by {k4_b[1]}, {k4_b[0] / k4_ms:.4f} of it")
 
     # The crossover: one frame's GFTT by route, in turns (host, device,
     # device, host) at each size; the crossover is the smallest size from
@@ -2516,6 +2538,14 @@ def routes_phase(device, frames, analyze_db, smi):
             launches = (lk_prep.launches, lk_iter.launches,
                         gftt_suppress.launches)
             chain_db = path
+    host_kps = read_analyze_db(os.path.join(workdir, "routes_0.db"), n)[0]
+    dev_kps = read_analyze_db(os.path.join(workdir, "routes_1.db"), n)[0]
+    same_kps = all(np.array_equal(a, b) for a, b in zip(host_kps, dev_kps))
+    print(f"  analyze keypoints, GFTT's device route (K4) against its host "
+          f"route: {'equal' if same_kps else 'DIFFER'}")
+    if not same_kps:
+        fails.append("the device route's analyze keypoints differ from the "
+                     "host route's")
     kps, flows = read_analyze_db(chain_db, n)
     ref_kps, ref_flows = read_analyze_db(analyze_db, n)
     fails += analyze_gates(kps, flows, n)
@@ -2571,7 +2601,8 @@ def routes_phase(device, frames, analyze_db, smi):
     torch.cuda.synchronize()
     if fails:
         raise AssertionError("analyze routes:\n" + "\n".join(fails))
-    return dict(ms=k4_ms, plain_ms=k4_plain, bound=k4_b, max_abs_err=k4_err,
+    return dict(ms=k4_ms, floor_ms=floor_ms, plain_ms=k4_plain,
+                bound=k4_b, max_abs_err=k4_err,
                 routes_launches=launches, split_launches=split_launches,
                 clip_rounds=sum(clip_rounds))
 
@@ -2700,13 +2731,14 @@ def main() -> None:
         # A kernel of the port alone: the JAX package runs this fixed point
         # as XLA, not Pallas.
         "replaces": "polychase_tpu/engine/gftt.py:540",
-        # Wrapper calls, one a frame; each queues 1 + 2 x MAX_ROUNDS CUDA
-        # launches (cuda_launches), of which the rounds after the fixed
-        # point return at once (rounds: those that did work on the main
-        # path's frames).
+        # Wrapper calls, one a frame; cuda_launches: the cooperative
+        # launches the library counted for them, one each; rounds: those the
+        # main path's frames ran; floor_ms: the same frame at d 1 (one
+        # round, no neighbour reads).
         "launches": lk_launches[2],
         "cuda_launches": lk_launches[3],
         "rounds": routes["clip_rounds"],
+        "floor_ms": routes["floor_ms"],
         "routes_launches": routes["routes_launches"][2],
         "max_abs_err": routes["max_abs_err"],
         "ms": routes["ms"],

@@ -15,8 +15,9 @@ the same corners in the same order:
 - device route (:func:`device_suppress_route`, frames of
   ``DEVICE_SUPPRESS_MIN`` pixels and more): the suppression runs on the
   device as the reference's exact fixed point (``_suppress_device``), on a
-  card in the kernel K4 (``kernels/gftt_suppress.py``), and only the kept
-  points cross, to be put in quality order.  Where the fixed point has
+  card in the kernel K4 (``kernels/gftt_suppress.py``), which also
+  compacts the kept points, and only those cross, to be put in quality
+  order.  Where the fixed point has
   points undecided after ``MAX_ROUNDS`` rounds, :func:`gftt_finish` runs
   more rounds on the device from where they stopped (the JAX package
   redoes such a frame on the host); ``resumed_frames`` counts those frames.
@@ -53,9 +54,11 @@ _COLLISION_COUNT = 2 ** 30
 
 # Frames of at least this many pixels take the device suppression route.
 # The port's own threshold, not the JAX package's TPU one (2,000,000):
-# chip_smoke.py's crossover on an H100 (PERF.md) had the device route win
-# both turns from 1280×720 up and split them at 640×480.
-DEVICE_SUPPRESS_MIN = 921_600
+# in chip_smoke.py's routes phase on an H100 80GB HBM3 at 700 W (PERF.md)
+# the device route, K4 in one launch, won both turns at every size from
+# 320×240 in every run; at 160×120 and 80×60 the two routes lay within
+# 0.7 ms of each other and the host route won a turn at 160×120.
+DEVICE_SUPPRESS_MIN = 76_800
 # Rounds of the suppression fixed point queued at a time.
 MAX_ROUNDS = 128
 # Frames of the device route whose fixed point outlasted MAX_ROUNDS rounds
@@ -311,7 +314,7 @@ def device_suppress_route(num_pixels: int, options: GFTTOptions) -> bool:
 def _compact_kept(qmap, kept, k: int):
     """The kept points' qualities and row-major indices in row-major order,
     zero past ``count``, in buffers of ``k``: ``(vals (k,), idx (k,),
-    count)``."""
+    count)`` (the plain version of K4's compaction)."""
     flat = kept.reshape(-1)
     pos = torch.cumsum(flat, 0) - 1
     count = pos[-1] + 1
@@ -329,7 +332,8 @@ def _compact_kept(qmap, kept, k: int):
 def gftt_suppressed_topk(image, mask, quality_level, harris_k, *, k: int,
                          offsets, **kw):
     """The whole GFTT tail on the device: response → NMS → min-distance
-    suppression (K4 on a card) → the kept points.
+    suppression and the kept points' compaction (K4 on a card, one
+    launch; the plain fixed point and :func:`_compact_kept` elsewhere).
 
     Returns ``(vals (k,), idx (k,), count, converged, qmap, state)``: the
     kept points' qualities and row-major indices in row-major order (the
@@ -337,12 +341,13 @@ def gftt_suppressed_topk(image, mask, quality_level, harris_k, *, k: int,
     set is a compaction here), zero past ``count``; where ``converged`` is
     False the finish goes on from ``state`` on the quality map ``qmap``.
     ``k`` must hold every kept point (the hex-packing bound)."""
-    from ..kernels.gftt_suppress import gftt_suppress
+    from ..kernels.gftt_suppress import gftt_suppress_kept
 
     eig, cand = gftt_response(image, mask, quality_level, harris_k, **kw)
     qmap = torch.where(cand, eig, 0.0).contiguous()
-    kept, converged, _, state = gftt_suppress(qmap, offsets, MAX_ROUNDS)
-    return (*_compact_kept(qmap, kept, k), converged, qmap, state)
+    vals, idx, count, converged, _, state = gftt_suppress_kept(
+        qmap, offsets, k, MAX_ROUNDS)
+    return vals, idx, count, converged, qmap, state
 
 
 class GFTTDispatch(NamedTuple):
@@ -367,6 +372,17 @@ def _as_mask(mask, device) -> Optional[torch.Tensor]:
     return mask if mask.dtype == torch.bool else mask != 0
 
 
+def kept_capacity(h: int, w: int, min_distance: float) -> int:
+    """The device route's kept buffer for an h×w frame.  Kept points are
+    pairwise >= min_distance apart, so the hex packing bound caps their
+    count (Groemer's bound for a W×H rectangle, 2WH/(√3 d²) + (W + H)/d +
+    1, lies below it; a 4K noise frame keeps ~170k at d = 5, the bound is
+    ~390k)."""
+    d = float(min_distance)
+    pack = int((w / d + 2) * (h / d + 2) * 1.16)
+    return min(max(32768, pack), h * w)
+
+
 def gftt_dispatch(image, mask=None, options: GFTTOptions = GFTTOptions(),
                   k: int = 0, *, device) -> GFTTDispatch:
     """Start GFTT for a frame: the device work is queued, nothing blocks.
@@ -389,14 +405,8 @@ def gftt_dispatch(image, mask=None, options: GFTTOptions = GFTTOptions(),
     kw = _response_kw(options, is_8u)
     q, hk = float(options.quality_level), float(options.harris_k)
     if device_suppress_route(img.numel(), options):
-        # Kept points are pairwise >= min_distance apart, so the hex
-        # packing bound caps their count (Groemer's bound for a W×H
-        # rectangle, 2WH/(√3 d²) + (W + H)/d + 1, lies below it; a 4K
-        # noise frame keeps ~170k at d = 5, the bound is ~390k).
         d = float(options.min_distance)
-        H, W = img.shape
-        pack = int((W / d + 2) * (H / d + 2) * 1.16)
-        k = min(max(32768, pack), img.numel())
+        k = kept_capacity(*img.shape, d)
         *out, qmap, state = gftt_suppressed_topk(
             imgf, maskt, q, hk, k=k, offsets=_circle_offsets(d), **kw)
         return GFTTDispatch(HostCopy(*out), tuple(img.shape), options,
@@ -475,7 +485,7 @@ def _finish_suppressed(d: GFTTDispatch):
     greedy pass's acceptance order), cut at ``max_corners``.  A fixed point
     with points still undecided goes on, on the device, from its state."""
     global resumed_frames
-    from ..kernels.gftt_suppress import gftt_suppress
+    from ..kernels.gftt_suppress import gftt_suppress_kept
     from .. import native
 
     vals, idx, count, converged = d.copy.numpy()
@@ -485,10 +495,10 @@ def _finish_suppressed(d: GFTTDispatch):
         offsets = _circle_offsets(float(d.options.min_distance))
         done = False
         while not done:
-            kept, conv, _, state = gftt_suppress(qmap, offsets, MAX_ROUNDS,
-                                                 state)
+            *kept, conv, _, state = gftt_suppress_kept(qmap, offsets, k,
+                                                       MAX_ROUNDS, state)
             done = bool(conv)  # waits for this batch of rounds
-        vals, idx, count = HostCopy(*_compact_kept(qmap, kept, k)).numpy()
+        vals, idx, count = HostCopy(*kept).numpy()
     assert int(count) <= vals.shape[0], "more kept points than the bound"
     keep = vals > 0.0
     vals, lin = vals[keep], idx[keep].astype(np.int64)

@@ -803,38 +803,155 @@ def _qmaps(card):
             torch.as_tensor(ties, device=card)]
 
 
-@pytest.mark.parametrize("d", [1.0, 2.5, 5.0, 8.0])
-def test_gftt_suppress_matches_plain(card, d):
-    """The kept map equal to the bit, converged and rounds equal (both
-    compare qualities and indices only), one launch a call.  The frame's
-    map converges; where every quality ties, the later index decides, and
-    its chains can outlast the round cap in both.  Cut at 2 rounds and
-    resumed from its state in batches of 2, the fixed point ends on the
-    uncut kept map."""
+def _noise_qmap(card, kind, shape, seed=0):
+    """A random map: noise qualities, all tied, or quantized to quarters,
+    on 40% of the pixels."""
+    rng = np.random.default_rng(seed)
+    q = rng.random(shape).astype(np.float32)
+    q[rng.random(shape) < 0.6] = 0.0
+    if kind == "ties":
+        q = np.where(q > 0, np.float32(0.5), np.float32(0.0))
+    elif kind == "quantized":
+        q = np.round(q * 4).astype(np.float32) / 4
+    return torch.as_tensor(q, device=card)
+
+
+def _frame_qmap(card, frame, mask=None):
+    from polychase_tpu_torch.engine import gftt
+
+    img = torch.as_tensor(frame, device=card).to(torch.float32)
+    m = None if mask is None else torch.as_tensor(mask, device=card)
+    eig, cand = gftt.gftt_response(img, m, 0.01, 0.04)
+    return torch.where(cand, eig, 0.0).contiguous()
+
+
+def _k4_matches_plain(q, d, max_rounds=None, **kw):
+    """K4 (both calls) against ``suppress_plain`` + ``_compact_kept`` on
+    one map, to the bit, with one CUDA launch a call.  Returns the plain
+    result."""
     from polychase_tpu_torch.engine import gftt
     from polychase_tpu_torch.kernels import gftt_suppress
 
     offs = gftt._circle_offsets(d)
-    for i, q in enumerate(_qmaps(card)):
-        before = gftt_suppress.launches
-        got = gftt_suppress.gftt_suppress(q, offs)
-        assert gftt_suppress.launches == before + 1
-        ref = gftt.suppress_plain(q, offs)
-        assert torch.equal(got[0], ref[0]) and int(got[0].sum()) > 0
-        assert bool(got[1]) == bool(ref[1]) and (i == 1 or bool(got[1]))
-        assert int(got[2]) == int(ref[2])
-    # Cut at 2 rounds, on the map whose qualities all tie, then resumed.
-    got, ref = (gftt_suppress.gftt_suppress(q, offs, 2),
-                gftt.suppress_plain(q, offs, 2))
-    assert torch.equal(got[0], ref[0])
-    assert bool(got[1]) == bool(ref[1])
+    max_rounds = gftt.MAX_ROUNDS if max_rounds is None else max_rounds
+    k = q.numel()
+    ref = gftt.suppress_plain(q, offs, max_rounds)
+    want = gftt._compact_kept(q, ref[0], k)
+    before = (gftt_suppress.launches, gftt_suppress.cuda_launches())
+    got = gftt_suppress.gftt_suppress_kept(q, offs, k, max_rounds, **kw)
+    four = gftt_suppress.gftt_suppress(q, offs, max_rounds, **kw)
+    assert (gftt_suppress.launches, gftt_suppress.cuda_launches()) == (
+        before[0] + 2, before[1] + 2)
+    for a, b in zip(got[:3], want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got[3].dtype == torch.bool and bool(got[3]) == bool(ref[1])
+    assert got[4].dtype == torch.int32 and int(got[4]) == int(ref[2])
+    assert torch.equal(got[5] >= 2, ref[0])
+    assert torch.equal(four[0], ref[0]) and bool(four[1]) == bool(ref[1])
+    assert int(four[2]) == int(ref[2])
+    return ref
+
+
+@pytest.mark.parametrize("d", [1.0, 2.5, 5.0, 8.0])
+def test_gftt_suppress_matches_plain(card, d):
+    """The kept map, the kept list (vals, idx, count), converged and
+    rounds equal to the bit (both compare qualities and indices only), one
+    launch a call: a frame's map and noise maps whose qualities are noise,
+    all tied or quantized.  Cut at 1, 2 and 5 rounds and resumed from
+    its state in batches of as many, the fixed point ends on the uncut
+    kept list and round count."""
+    from polychase_tpu_torch.engine import gftt
+    from polychase_tpu_torch.kernels import gftt_suppress
+
+    maps = _qmaps(card)[:1] + [_noise_qmap(card, kind, (480, 640), i)
+                               for i, kind in enumerate(
+                                   ("noise", "ties", "quantized"))]
+    for i, q in enumerate(maps):
+        ref = _k4_matches_plain(q, d)
+        assert int(ref[0].sum()) > 0 and (i != 0 or bool(ref[1]))
+    offs = gftt._circle_offsets(d)
+    q = maps[2]
     whole = gftt.suppress_plain(q, offs, 100_000)
-    kept, conv, rounds, state = got[0], got[1], int(got[2]), got[3]
-    while not bool(conv):
-        kept, conv, r, state = gftt_suppress.gftt_suppress(q, offs, 2, state)
-        rounds += int(r)
-    assert torch.equal(kept, whole[0]) and bool(whole[1])
-    assert rounds == int(whole[2])
+    want = gftt._compact_kept(q, whole[0], q.numel())
+    for cut in (1, 2, 5):
+        got = gftt_suppress.gftt_suppress_kept(q, offs, q.numel(), cut)
+        rounds = int(got[4])
+        while not bool(got[3]):
+            got = gftt_suppress.gftt_suppress_kept(q, offs, q.numel(), cut,
+                                                   got[5])
+            rounds += int(got[4])
+        for a, b in zip(got[:3], want):
+            assert torch.equal(a, b)
+        assert rounds == int(whole[2]) and bool(whole[1])
+
+
+@pytest.mark.parametrize("shape", [(1, 1919), (1081, 1), (1081, 1919),
+                                   (3, 5)])
+def test_gftt_suppress_shapes(card, shape):
+    """One row, one column, an odd-sized 1080p-like frame and a map
+    smaller than a band: K4 equals the plain version at every disc."""
+    for d in (1.0, 2.5, 5.0, 8.0):
+        _k4_matches_plain(_noise_qmap(card, "noise", shape), d)
+
+
+def test_gftt_suppress_4k_frame(card):
+    """The routes phase's 4K noise frame (3840×2160, ~170k kept at d 5):
+    its bands outgrow shared memory and are walked in column chunks."""
+    big = panning_clip(np.random.default_rng(5), 1, 3840, 2160, (7, 4))[0]
+    q = _frame_qmap(card, big)
+    for d in (1.0, 2.5, 5.0, 8.0):
+        assert bool(_k4_matches_plain(q, d)[1])
+
+
+def test_gftt_suppress_masked_frame(card):
+    frame = panning_clip(np.random.default_rng(3), 1, 640, 480)[0]
+    mask = np.zeros((480, 640), bool)
+    mask[40:300, 100:500] = True
+    q = _frame_qmap(card, frame, mask)
+    assert bool((q[~torch.as_tensor(mask, device=card)] == 0).all())
+    ref = _k4_matches_plain(q, 5.0)
+    assert int(ref[0].sum()) > 100
+
+
+def test_gftt_suppress_outlasts_max_rounds(card):
+    """Every pixel of a 480×640 map ties: the later index decides, and the
+    fixed point needs 313 rounds at d 5, past MAX_ROUNDS.  Cut there, it is
+    unconverged in both; resumed, it ends on the uncut result."""
+    from polychase_tpu_torch.engine import gftt
+    from polychase_tpu_torch.kernels import gftt_suppress
+
+    q = torch.full((480, 640), 0.5, device=card)
+    ref = _k4_matches_plain(q, 5.0)
+    assert not bool(ref[1]) and int(ref[2]) == gftt.MAX_ROUNDS
+    offs = gftt._circle_offsets(5.0)
+    whole = gftt.suppress_plain(q, offs, 100_000)
+    got = gftt_suppress.gftt_suppress_kept(q, offs, q.numel())
+    rounds = int(got[4])
+    while not bool(got[3]):
+        got = gftt_suppress.gftt_suppress_kept(q, offs, q.numel(),
+                                               state=got[5])
+        rounds += int(got[4])
+    assert rounds == int(whole[2]) > gftt.MAX_ROUNDS
+    for a, b in zip(got[:3], gftt._compact_kept(q, whole[0], q.numel())):
+        assert torch.equal(a, b)
+
+
+def test_gftt_suppress_forced_grids(card):
+    """A forced grid of 2 blocks gives the same bits (bands of 240 rows,
+    walked in column chunks); a grid that cannot be co-resident is refused by the
+    runtime and raises, with no launch counted (by the wrapper or by the
+    library) and no fallback."""
+    from polychase_tpu_torch.engine import gftt
+    from polychase_tpu_torch.kernels import gftt_suppress
+
+    q = _qmaps(card)[0]
+    _k4_matches_plain(q, 5.0, grid=2)
+    offs = gftt._circle_offsets(5.0)
+    before = (gftt_suppress.launches, gftt_suppress.cuda_launches())
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        gftt_suppress.gftt_suppress_kept(q, offs, q.numel(), grid=100_000)
+    assert (gftt_suppress.launches, gftt_suppress.cuda_launches()) == before
+    torch.cuda.synchronize()
 
 
 def test_gftt_device_route_matches_host_route_on_card(card, monkeypatch):

@@ -195,3 +195,54 @@ def test_masked_frame_on_the_device_route(rng, monkeypatch):
     assert len(p) > 10
     assert ((p[:, 0] >= 20) & (p[:, 0] < 140) & (p[:, 1] >= 10)
             & (p[:, 1] < 100)).all()
+
+
+@pytest.mark.parametrize("kind", ["noise", "ties", "quantized"])
+@pytest.mark.parametrize("d", [2.5, 5.0])
+def test_suppress_kept_matches_jax(kind, d):
+    """K4's compacting call on the CPU (the plain fixed point, then
+    ``_compact_kept``): the JAX kept map's points in row-major order, their
+    qualities, zero past the count; cut at k below the count, the first k
+    of them with the full count."""
+    rng = np.random.default_rng(int(d * 10) + 7 * len(kind))
+    q = _qmap(rng, kind)
+    offs = TG._circle_offsets(d)
+    jk = np.asarray(JG._suppress_device(jnp.asarray(q), offsets=offs)[0])
+    lin = np.flatnonzero(jk)
+    for k in (q.size, len(lin) - 3):
+        vals, idx, count, conv, rounds, state = (
+            gftt_suppress.gftt_suppress_kept(torch.as_tensor(q), offs, k))
+        assert bool(conv) and int(count) == len(lin)
+        m = min(k, len(lin))
+        np.testing.assert_array_equal(idx.numpy()[:m], lin[:m])
+        np.testing.assert_array_equal(vals.numpy()[:m], q.reshape(-1)[lin[:m]])
+        assert not vals.numpy()[m:].any() and not idx.numpy()[m:].any()
+        np.testing.assert_array_equal(state.numpy() >= 2, jk)
+
+
+@pytest.mark.parametrize("d", DISCS + (1.5, 3.3, 0.5))
+def test_disc_rows_rebuild_the_disc(d):
+    """K4 takes the disc as a half-width a row; the rows give back the
+    offsets of ``_circle_offsets`` without (0, 0)."""
+    offs = TG._circle_offsets(d)
+    r, half = gftt_suppress.disc_rows(offs)
+    rebuilt = {(dy, dx) for dy, h in zip(range(-r, r + 1), half)
+               for dx in range(-h, h + 1)} - {(0, 0)}
+    assert rebuilt == set(offs) - {(0, 0)}
+    assert len(half) == 2 * r + 1
+
+
+def test_disc_rows_refuse_other_shapes():
+    with pytest.raises(ValueError):
+        gftt_suppress.disc_rows(((0, 0), (0, 1), (1, 0)))
+
+
+def test_kept_capacity_holds_the_kept_points():
+    """The device route's buffer holds every kept point: above the hex
+    packing count of the frame, at least 32,768, at most the frame."""
+    assert TG.kept_capacity(1080, 1920, 5.0) == int(
+        (1920 / 5 + 2) * (1080 / 5 + 2) * 1.16)
+    assert TG.kept_capacity(48, 64, 5.0) == 48 * 64
+    assert TG.kept_capacity(600, 800, 8.0) == 32768
+    assert TG.kept_capacity(2160, 3840, 5.0) > 2 * 2160 * 3840 / (
+        np.sqrt(3) * 25) + (2160 + 3840) / 5 + 1

@@ -292,3 +292,28 @@ def test_long_segments_match_jax(scene60, monkeypatch, segs, banded):
     for t, j in zip(port, ref):
         np.testing.assert_allclose(_ts(t), _ts(j), atol=POSE_ATOL)
         np.testing.assert_allclose(_qs(t), _qs(j), atol=POSE_ATOL)
+
+
+BANDED_SEGS = ((0, 49), (10, 59))
+BANDED_OPTS = BundleOptions(loss_type=CAUCHY, loss_scale=1.0,
+                            max_iterations=6)
+
+
+@pytest.fixture(scope="module")
+def banded_one(scene60):
+    return _port(scene60, _noisy(scene60, BANDED_SEGS), BANDED_OPTS)
+
+
+@pytest.mark.parametrize("n_devices", [2, 8])
+def test_banded_split_over_devices(scene60, banded_one, n_devices):
+    """The banded segments (nb = 13, bs = 24) over 2 or 8 devices (here
+    all the CPU): each shard solves its systems in a smaller batch, and
+    the split changes nothing."""
+    split = _port(scene60, _noisy(scene60, BANDED_SEGS), BANDED_OPTS,
+                  device=["cpu"] * n_devices)
+    assert len(split) == len(banded_one)
+    for a, b in zip(split, banded_one):
+        assert (a.first_frame, a.last_frame) == (b.first_frame, b.last_frame)
+        assert np.isfinite(_ts(a)).all()
+        np.testing.assert_allclose(_ts(a), _ts(b), atol=SPLIT_ATOL)
+        np.testing.assert_allclose(_qs(a), _qs(b), atol=SPLIT_ATOL)
