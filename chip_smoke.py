@@ -143,9 +143,29 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     shards on card 0) against the one-device chained DB, with its K2/K3
     launches; the frames resumed on the card (a fixed point that outlasts
     ``gftt.MAX_ROUNDS`` rounds) in the whole run.
-13. Prints the card, the kernels' JSON line (time, plain time, bound and
+13. Add-on phase: the Blender add-on copy as a user installs it.  The zip
+    of ``scripts/package_addon_torch.py`` is built and extracted into a
+    temporary directory outside the checkout, its shim imported under the
+    fake bpy of ``tests/`` with the checkout's package set aside and a fresh
+    user cache as ``XDG_CACHE_HOME``: the package comes from the zip, no
+    jax is loaded, the host library and K1-K4 build from the zip's sources
+    into the user cache.  With ``core.DEVICE`` left at None (the card):
+    ``PC_OT_AnalyzeVideo`` through its modal loop on the 24-frame panning
+    clip (served as Blender's float pixels), its DB equal to the surface
+    phase's to the bit and analyze's gates; ``PC_OT_TrackSequence`` over
+    the tracking clip (its DB flipped to the OpenGL convention's y up, the
+    camera posed at frame 0), every frame keyed, the keyframes within 1e-6
+    of the direct ``track_sequence`` on the add-on's own inputs written
+    back by the add-on's own code, and within the ground-truth thresholds
+    (the difference from the surface phase's OpenCV poses printed); one
+    8-pin drag of pin 2 through pin mode within ``PIN_ROUTE_ATOL`` of the
+    pin phase's drag; K1-K4 launched as the runs need.  Then analyze and
+    tracking frames/s through the surface and through the add-on, in turns
+    (surface, add-on, add-on, surface).
+14. Prints the card, the kernels' JSON line (time, plain time, bound and
     what sets it, launches on the main path (the analyze, tracking and pin
-    phases) and apart in the surface, segments, sharded and routes phases,
+    phases) and apart in the surface, segments, sharded, routes and add-on
+    phases,
     for K4 also its CUDA launches (one a call), the rounds of the main
     path's frames, both neighbour reads' times and its floor, largest
     difference) and, last,
@@ -157,6 +177,7 @@ It refuses to run without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -774,6 +795,13 @@ def analyze_solves(n, height, width):
     return levels, solves
 
 
+def analyze_k4(height, width) -> bool:
+    """Whether frames of this size take GFTT's device route (K4)."""
+    from polychase_tpu_torch.engine import gftt
+
+    return gftt.device_suppress_route(height * width, gftt.GFTTOptions())
+
+
 def analyze_phase(device, frames, workdir):
     """Analyze the panning clip twice (warm-up, timed), each into a fresh
     DB in ``workdir``, and check the timed run against the ground truth; a
@@ -812,8 +840,7 @@ def analyze_phase(device, frames, workdir):
     levels, solves = analyze_solves(n, height, width)
     # K4 once per detected frame where frames of this size take the device
     # suppression route.
-    k4 = n if gftt.device_suppress_route(height * width,
-                                         gftt.GFTTOptions()) else 0
+    k4 = n if analyze_k4(height, width) else 0
     if launches != (levels * solves, levels * solves, k4):
         fails.append(f"K2/K3/K4 launched {launches} times for {solves} "
                      f"solves of {levels} levels and {k4} K4 frames")
@@ -1302,12 +1329,14 @@ SURFACE_PICKS = 64
 SURFACE_ATOL = 1e-6
 
 
-def drain(thread, frames=None, stop_after=None):
-    """Poll a worker thread of ``polychase_core`` until its done message,
-    serving its frame requests from ``frames`` and asking it to stop once
-    more than ``stop_after`` frames were requested.  Returns (its other
-    messages, the exceptions it sent, the frames it requested)."""
-    import polychase_tpu_torch.polychase_core as pc
+def drain(thread, frames=None, stop_after=None, pc=None):
+    """Poll a worker thread of ``polychase_core`` (``pc``, by default the
+    one ``import`` finds) until its done message, serving its frame
+    requests from ``frames`` and asking it to stop once more than
+    ``stop_after`` frames were requested.  Returns (its other messages, the
+    exceptions it sent, the frames it requested)."""
+    if pc is None:
+        import polychase_tpu_torch.polychase_core as pc
 
     msgs, errors, requested = [], [], []
     deadline = time.monotonic() + THREAD_DEADLINE_S
@@ -1356,7 +1385,8 @@ def surface_phase(device, frames, analyze_db, track, refine, workdir, smi):
     device ray cast's primitive ids), a ``CppException`` and a clean cancel;
     then tracking and analyze frames/s and the 8-pin drag's ms, direct and
     through the surface, in turns.  Returns the K1, K2 and K3 launches of
-    its gated runs."""
+    its gated runs and what the add-on phase compares with: the thread's
+    DB and the ``TrackerThread``'s poses by frame."""
     import polychase_tpu_torch.polychase_core as pc
     from polychase_tpu_torch import crossover
     from polychase_tpu_torch.backend import surface_devices
@@ -1607,7 +1637,8 @@ def surface_phase(device, frames, analyze_db, track, refine, workdir, smi):
         print(f"  {what} (direct, through the surface, in turns): "
               + ", ".join(f"{how} {value:.4f}" for how, value in runs)
               + f" on {smi}")
-    return k1_track + k1_pin, lk_launches
+    return k1_track + k1_pin, lk_launches, dict(
+        db=path, poses={r.frame: (r.pose.q, r.pose.t) for r in results})
 
 
 # ---------------------------------------------------------------------------
@@ -2607,6 +2638,470 @@ def routes_phase(device, frames, analyze_db, smi):
                 clip_rounds=sum(clip_rounds))
 
 
+# ---------------------------------------------------------------------------
+# Add-on phase
+# ---------------------------------------------------------------------------
+
+ADDON_SOURCES = ("pnp_lm.cu", "lk_prep.cu", "lk_iter.cu", "gftt_suppress.cu")
+# Between the OpenCV and the OpenGL camera frame (its own inverse).
+GL_FLIP = np.diag([1.0, -1.0, -1.0, 1.0])
+PIN_DRAG_TO = (955.0, 542.0)  # crossover.pin_drag's target of pin 2 (k = 0)
+
+
+class Event:
+    """A window-manager event as the add-on's modal handlers read it."""
+
+    def __init__(self, etype, value="NOTHING", x=0.0, y=0.0):
+        self.type, self.value = etype, value
+        self.mouse_x, self.mouse_y, self.ctrl = x, y, False
+
+
+def pump(op, ctx):
+    """Tick a modal operator on its timer until it leaves RUNNING_MODAL;
+    anything but FINISHED fails."""
+    deadline = time.monotonic() + THREAD_DEADLINE_S
+    timer = Event("TIMER")
+    while time.monotonic() < deadline:
+        res = op.modal(ctx, timer)
+        if res == {"FINISHED"}:
+            return
+        if res != {"RUNNING_MODAL"}:
+            raise AssertionError(f"{type(op).__name__} ended {res}: "
+                                 f"{op.reports}")
+        time.sleep(0.001)
+    raise AssertionError(f"{type(op).__name__} did not finish within "
+                         f"{THREAD_DEADLINE_S} s")
+
+
+def gl_flow_db(src_path, dst_path, n):
+    """A copy of an OpenCV-convention flow DB in the OpenGL convention the
+    add-on tracks in: pixel y counted up, y' = HEIGHT - y (Blender's image
+    rows run bottom-up; the principal point is at HEIGHT / 2 in both)."""
+    from polychase_tpu_torch.io.database import Database
+
+    def flip(a):
+        return np.stack([a[:, 0], np.float32(HEIGHT) - a[:, 1]], -1)
+
+    src, dst = Database(src_path), Database(dst_path)
+    try:
+        with dst.deferred_commits():
+            for f in range(n):
+                dst.write_keypoints(f, flip(src.read_keypoints(f)))
+            for f in range(n):
+                for t in src.find_optical_flows_from_image(f):
+                    fl = src.read_image_pair_flow(f, t)
+                    dst.write_image_pair_flow(f, t, fl.src_kps_indices,
+                                              flip(fl.tgt_kps),
+                                              fl.flow_errors)
+    finally:
+        src.close()
+        dst.close()
+
+
+class CameraView3D:
+    """A 3D view looking through the scene camera (Blender's camera view):
+    the view follows the camera, the projection is the clip's pinhole."""
+
+    def __init__(self, mu, camera, near=0.1, far=1000.0):
+        self.camera = camera
+        self.view_perspective = "CAMERA"
+        self.window_matrix = mu.Matrix((
+            (2.0 * FOCAL / WIDTH, 0.0, 0.0, 0.0),
+            (0.0, 2.0 * FOCAL / HEIGHT, 0.0, 0.0),
+            (0.0, 0.0, -(far + near) / (far - near),
+             -2.0 * far * near / (far - near)),
+            (0.0, 0.0, -1.0, 0.0),
+        ))
+
+    @property
+    def view_matrix(self):
+        return self.camera.matrix_world.inverted()
+
+    @property
+    def perspective_matrix(self):
+        return self.window_matrix @ self.view_matrix
+
+
+def cv_view(world) -> np.ndarray:
+    """The OpenCV view matrix of a Blender camera's world matrix."""
+    return GL_FLIP @ np.linalg.inv(np.asarray(world, np.float64))
+
+
+def rot_angle(ra, rb) -> float:
+    """The angle between two rotation matrices, in float64."""
+    c = (np.trace(np.asarray(ra, np.float64) @ np.asarray(rb).T) - 1) / 2
+    return float(np.arccos(np.clip(c, -1.0, 1.0)))
+
+
+@contextlib.contextmanager
+def extracted_addon(zip_path, tests_dir):
+    """The add-on zip extracted into a temporary directory outside any
+    checkout and its shim imported as Blender would, with a fresh user
+    cache as the build root (``XDG_CACHE_HOME``), the fake bpy of
+    ``tests/`` installed and the checkout's ``polychase_tpu_torch`` set
+    aside so that the import takes the zip's copy.  Yields (the shim, the
+    extract directory, the cache directory, fake_bpy, the scene, bpy);
+    restores everything on exit."""
+    import importlib.util
+    import sys
+    import zipfile
+
+    ours = {k: v for k, v in sys.modules.items()
+            if k.split(".")[0] == "polychase_tpu_torch"}
+    path, cache_env = list(sys.path), os.environ.get("XDG_CACHE_HOME")
+    with tempfile.TemporaryDirectory() as extract, \
+            tempfile.TemporaryDirectory() as cache:
+        zipfile.ZipFile(zip_path).extractall(extract)
+        os.environ["XDG_CACHE_HOME"] = cache
+        for name in ours:
+            del sys.modules[name]
+        sys.path.insert(0, tests_dir)
+        import fake_bpy
+
+        scene = fake_bpy.FakeScene()
+        bpy, saved = fake_bpy.install(scene)
+        try:
+            spec = importlib.util.spec_from_file_location(
+                "polychase_torch_addon", os.path.join(extract, "__init__.py"))
+            shim = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(shim)
+            yield shim, extract, cache, fake_bpy, scene, bpy
+        finally:
+            fake_bpy.uninstall(saved)
+            for name in [k for k in sys.modules
+                         if k.split(".")[0] == "polychase_tpu_torch"]:
+                del sys.modules[name]
+            sys.modules.update(ours)
+            sys.path[:] = path
+            if cache_env is None:
+                os.environ.pop("XDG_CACHE_HOME", None)
+            else:
+                os.environ["XDG_CACHE_HOME"] = cache_env
+
+
+def addon_phase(device, frames, track, surface, workdir, smi,
+                addon_device=None):
+    """The Blender add-on copy installed from its release zip (module
+    docstring, item 13), its engine calls on ``addon_device``, the copy's
+    ``core.DEVICE`` (None: the card, as a user's Blender runs it).
+    ``device`` runs the checkout's reference calls.  Returns the K1, K2, K3
+    and K4 launches of its gated runs."""
+    import importlib
+    import sys
+    from pathlib import Path
+
+    import polychase_tpu_torch.polychase_core as spc
+    from polychase_tpu_torch import crossover
+    from polychase_tpu_torch.synthetic import uv_sphere
+
+    fails = []
+    root = os.path.dirname(os.path.abspath(__file__))
+    n = len(frames)
+    height, width = frames[0].shape
+    poses = track["poses"]
+    last = len(poses) - 1
+    # The checkout's references, before its package is set aside: the pin
+    # phase's 8-pin drag and the surface phase's threads (timed in turns).
+    pins, escene = crossover.pin_scene(device, 8)
+    pin_ref = crossover.pin_drag(pins, escene, 0, device).view_matrix.numpy()
+    pin_view = escene.view_matrix.numpy().astype(np.float64)
+    track_cv = spc.SceneTransformations(
+        np.eye(4), view_of(poses[0]), spc.CameraIntrinsics(
+            FOCAL, FOCAL, WIDTH / 2, HEIGHT / 2, 1.0, WIDTH, HEIGHT,
+            spc.CameraConvention.OpenCV))
+    track_mesh = spc.AcceleratedMesh(track["verts"], track["tris"])
+
+    def surface_analyze(path):
+        t0 = time.perf_counter()
+        _, errors, _ = drain(spc.OpticalFlowThread(
+            spc.VideoInfo(width, height, 0, n), path), frames, pc=spc)
+        if errors:
+            raise errors[0]
+        return time.perf_counter() - t0
+
+    def surface_track():
+        t0 = time.perf_counter()
+        _, errors, _ = drain(spc.TrackerThread(
+            track["db"], 0, last, track_cv, track_mesh, False, False,
+            spc.BundleOptions()), pc=spc)
+        if errors:
+            raise errors[0]
+        return time.perf_counter() - t0
+
+    zip_path = os.path.join(workdir, "addon.zip")
+    subprocess.run([sys.executable, os.path.join(
+        root, "scripts", "package_addon_torch.py"), zip_path], check=True,
+        capture_output=True, timeout=120)
+    gl_db = os.path.join(workdir, "addon_track.db")
+    with extracted_addon(zip_path, os.path.join(root, "tests")) as (
+            shim, extract, cache, fake_bpy, scene, bpy):
+        import fake_mathutils as mu
+        import polychase_tpu_torch
+        import polychase_tpu_torch.polychase_core as pc
+        from polychase_tpu_torch import native
+        from polychase_tpu_torch.kernels import (
+            build, gftt_suppress, lk_iter, lk_prep, pnp_lm,
+        )
+
+        pkg = "polychase_tpu_torch.blender_addon"
+        core = importlib.import_module(f"{pkg}.core")
+        analysis = importlib.import_module(f"{pkg}.operators.analysis")
+        tracking = importlib.import_module(f"{pkg}.operators.tracking")
+        pin_mode = importlib.import_module(
+            f"{pkg}.operators.pin_mode.pin_mode")
+        keyframes = importlib.import_module(f"{pkg}.keyframes")
+        shim.register()
+        core.DEVICE = addon_device
+        ctx = bpy.context
+
+        # The install: the zip's package, no JAX, the host library and the
+        # four kernels built from the zip's sources into the user cache.
+        cache_root = Path(cache) / "polychase_tpu_torch"
+        t0 = time.perf_counter()
+        libs = build.load_all(ADDON_SOURCES)
+        for mod in (pnp_lm, lk_prep, lk_iter, gftt_suppress):
+            mod.load()
+        build_s = time.perf_counter() - t0
+        checks = {
+            "polychase_tpu_torch comes from the zip":
+                polychase_tpu_torch.__file__.startswith(extract),
+            "no jax and no polychase_tpu module is loaded": not [
+                m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "polychase_tpu")],
+            "the host library is built and loaded": native.available(),
+            "the build root is the user cache":
+                build.build_root() == cache_root
+                and build.build_root() != Path(extract).parent / "build",
+            "the host library lies in the user cache":
+                native.library_path().parent == cache_root / "torch_native",
+            "K1-K4 lie in the user cache, built from the zip's csrc/":
+                all(lib.path.parent == cache_root / "torch_kernels"
+                    for lib in libs)
+                and str(build.CSRC).startswith(extract),
+        }
+        print(f"  zip: {os.path.getsize(zip_path)} bytes, extracted outside "
+              f"the checkout; bl_info {shim.bl_info['name']!r}; "
+              f"core.DEVICE {core.DEVICE}")
+        print(f"  build root {build.build_root()}: host library "
+              f"{native.library_path().name}, "
+              + ", ".join(f"{lib.path.name} (nvcc {lib.build_seconds:.2f} s)"
+                          for lib in libs)
+              + f"; built and loaded in {build_s:.2f} s")
+        for what, ok in checks.items():
+            print(f"  {what}: {'yes' if ok else 'NO'}")
+            if not ok:
+                fails.append(what)
+
+        def new_tracker(size, nframes, db_path, world=None, mesh=None):
+            """A fresh tracker on a fresh clip of ``size`` (width, height)
+            and a fresh camera of focal length FOCAL in pixels."""
+            clip = fake_bpy.FakeClip("clip", os.path.join(workdir,
+                                                          "clip.mp4"),
+                                     *size, 0, nframes)
+            cam_data = fake_bpy.FakeCameraData()
+            cam_data.lens = FOCAL * cam_data.sensor_width / size[0]
+            camera = fake_bpy.FakeObject("Camera", data=cam_data)
+            if world is not None:
+                camera.matrix_world = mu.Matrix(world)
+            geometry = None if mesh is None else fake_bpy.FakeObject(
+                "Sphere", mesh_arrays=mesh)
+            tracker = fake_bpy.FakeTracker(clip=clip, camera=camera,
+                                           geometry=geometry,
+                                           database_path=db_path)
+            scene._image_users.clear()
+            scene.polychase_state = fake_bpy.FakeState([tracker])
+            scene.frame_set(0)
+            return tracker
+
+        rgba = np.ones((height, width, 4), np.float32)
+
+        def addon_analyze(path):
+            tracker = new_tracker((width, height), n, path)
+            op = analysis.PC_OT_AnalyzeVideo()
+            op.invoke(ctx, Event("RET"))
+            t0 = time.perf_counter()
+            if op.execute(ctx) != {"RUNNING_MODAL"}:
+                raise AssertionError(f"analyze did not start: {op.reports}")
+            image = bpy.data.images.get(f"polychase_source_"
+                                        f"{tracker.clip.name}")
+
+            def pixels():
+                # The clip frame at the scene's frame, as Blender's float
+                # pixels of an 8-bit image (grey in R, G and B).
+                rgba[..., :3] = (frames[scene.frame_current][..., None]
+                                 .astype(np.float32) / 255.0)
+                return rgba
+
+            image.provider = pixels
+            scene._image_users.extend(
+                bg.image_user for bg in tracker.camera.data.background_images
+                if bg.source == "IMAGE" and bg.image is image)
+            pump(op, ctx)
+            return time.perf_counter() - t0
+
+        gl_flow_db(track["db"], gl_db, len(poses))
+        track_world = np.linalg.inv(GL_FLIP @ view_of(poses[0]))
+        track_mesh_arrays = (track["verts"], track["tris"])
+
+        def addon_track(tracker=None):
+            """The track through PC_OT_TrackSequence, on a fresh tracker or
+            on ``tracker`` with its camera's animation cleared."""
+            if tracker is None:
+                tracker = new_tracker((WIDTH, HEIGHT), len(poses), gl_db,
+                                      track_world, track_mesh_arrays)
+            else:
+                scene.polychase_state = fake_bpy.FakeState([tracker])
+                tracker.camera.animation_data = None
+                tracker.camera.keyframe_matrices.clear()
+                tracker.camera.matrix_world = mu.Matrix(track_world)
+                scene.frame_set(0)
+            start = core.scene_transformations(tracker, WIDTH, HEIGHT)
+            op = tracking.PC_OT_TrackSequence()
+            t0 = time.perf_counter()
+            if op.execute(ctx) != {"RUNNING_MODAL"}:
+                raise AssertionError(f"tracking did not start: "
+                                     f"{op.reports}")
+            pump(op, ctx)
+            return time.perf_counter() - t0, tracker, start
+
+        def addon_pin_drag():
+            tracker = new_tracker((WIDTH, HEIGHT), 1, "",
+                                  np.linalg.inv(GL_FLIP @ pin_view),
+                                  uv_sphere(24, 32))
+            tracker.pins_data = np.ascontiguousarray(pins,
+                                                     np.float32).tobytes()
+            tracker.pins_version += 1
+            rv3d = CameraView3D(mu, tracker.camera)
+            area = fake_bpy.FakeView3DArea(WIDTH, HEIGHT, rv3d)
+            ctx.screen.areas[:] = [area]
+            op = pin_mode.PC_OT_PinMode()
+            if op.invoke(ctx, Event("NONE")) != {"RUNNING_MODAL"}:
+                raise AssertionError(f"pin mode did not start: "
+                                     f"{op.reports}")
+            grab = op._project_pins(tracker, core.Trackers.get(tracker),
+                                    area.regions[0], rv3d)[2]
+            op.modal(ctx, Event("LEFTMOUSE", "PRESS", *map(float, grab)))
+            if op._drag_pin != 2:
+                raise AssertionError(f"pin mode picked pin {op._drag_pin}, "
+                                     f"want 2")
+            # Region y runs up: the OpenCV pixel y of the target, flipped.
+            to = (PIN_DRAG_TO[0], HEIGHT - PIN_DRAG_TO[1])
+            op.modal(ctx, Event("MOUSEMOVE", "NOTHING", *to))
+            op.modal(ctx, Event("LEFTMOUSE", "RELEASE", *to))
+            op.modal(ctx, Event("ESC", "PRESS"))
+            ctx.screen.areas.clear()
+            return cv_view(tracker.camera.matrix_world)
+
+        # The gated runs, with the launch counts of the zip's wrappers.
+        kernels = (pnp_lm, lk_prep, lk_iter, gftt_suppress)
+        for mod in kernels:
+            mod.launches = 0
+        analyze_s = addon_analyze(os.path.join(workdir, "addon_analyze.db"))
+        track_s, tracker, start = addon_track()
+        pin_got = addon_pin_drag()
+        launches = tuple(mod.launches for mod in kernels)
+
+        # Analyze: the surface phase's DB, to the bit.
+        kps, flows = read_analyze_db(os.path.join(workdir,
+                                                  "addon_analyze.db"), n)
+        ref_kps, ref_flows = read_analyze_db(surface["db"], n)
+        same_kps = all(np.array_equal(a, b) for a, b in zip(kps, ref_kps))
+        same_flows = set(flows) == set(ref_flows) and all(
+            np.array_equal(getattr(flows[k], a), getattr(ref_flows[k], a))
+            for k in flows
+            for a in ("src_kps_indices", "tgt_kps", "flow_errors"))
+        levels, solves = analyze_solves(n, height, width)
+        solves *= torch.cuda.device_count() if addon_device is None else 1
+        print(f"  PC_OT_AnalyzeVideo: {n} frames in {analyze_s:.3f} s; "
+              f"against the surface phase's DB: keypoints "
+              f"{'equal' if same_kps else 'DIFFER'}, pairs and flows "
+              f"{'equal to the bit' if same_flows else 'DIFFER'}")
+        if not (same_kps and same_flows):
+            fails.append("the add-on's analyze DB differs from the surface "
+                         "phase's")
+        fails += analyze_gates(kps, flows, n)
+
+        # Tracking: every frame keyed; the keyframes against the direct
+        # track_sequence on the add-on's own inputs, written back by the
+        # add-on's own code; the truth; the surface phase's poses.
+        gen = keyframes.keyframes_of_type(
+            keyframes.tracker_fcurves(tracker, include_lens=False),
+            keyframes.GENERATED_KEYFRAME)
+        if gen != set(range(1, last + 1)):
+            fails.append(f"{len(gen)} frames keyed, want {last}")
+        opts = pc.BundleOptions()
+        opts.loss_type = pc.LossType.Cauchy
+        opts.loss_scale = 1.0
+        direct = []
+        pc.track_sequence(gl_db, 0, last, start,
+                          core.Trackers.get(tracker).accel_mesh,
+                          lambda r: direct.append(r) or True, False, False,
+                          opts, device=addon_device)
+        replay = fake_bpy.FakeObject("Camera", data=tracker.camera.data)
+        replay.matrix_world = mu.Matrix(track_world)
+        replay_tracker = fake_bpy.FakeTracker(
+            clip=tracker.clip, camera=replay, geometry=tracker.geometry)
+        for r in direct:
+            tracking.apply_tracking_result(replay_tracker, r)
+        keyed = {f: np.asarray(tracker.camera.keyframe_matrices[f])
+                 for f in sorted(gen)}
+        dkey = max(float(np.abs(keyed[f] - replay.keyframe_matrices[f])
+                         .max()) for f in keyed)
+        views = {f: cv_view(m) for f, m in keyed.items()}
+        rot = max(rot_angle(v[:3, :3], view_of(poses[f])[:3, :3])
+                  for f, v in views.items())
+        terr = max(float(np.linalg.norm(v[:3, 3] - poses[f][1]))
+                   for f, v in views.items())
+        dsurf = max(float(np.abs(v - view_of(surface["poses"][f])).max())
+                    for f, v in views.items())
+        print(f"  PC_OT_TrackSequence: {len(gen)} frames keyed in "
+              f"{track_s:.3f} s (OpenGL, the DB flipped to y up); "
+              f"against the direct track_sequence written back by the "
+              f"add-on {dkey:.3g}; max rot err {rot:.3g} rad, max t err "
+              f"{terr:.3g}; against the surface phase's OpenCV poses "
+              f"(Huber, y down) {dsurf:.3g}")
+        if dkey > SURFACE_ATOL:
+            fails.append(f"the add-on's keyframes differ from the direct "
+                         f"track by {dkey:.3g}")
+        if rot > ROT_ERR_MAX or terr > T_ERR_MAX:
+            fails.append("an add-on keyframe is off the ground truth")
+
+        dpin = float(np.abs(pin_got - pin_ref).max())
+        print(f"  pin mode: one 8-pin drag of pin 2 to {PIN_DRAG_TO}; "
+              f"against the pin phase's drag {dpin:.3g}")
+        if dpin > PIN_ROUTE_ATOL:
+            fails.append(f"the add-on's pin drag differs from the pin "
+                         f"phase's by {dpin:.3g}")
+        want = (last, levels * solves, levels * solves,
+                n if analyze_k4(height, width) else 0)
+        print(f"  K1 / K2 / K3 / K4 launches through the add-on: "
+              f"{' / '.join(map(str, launches))} (want "
+              f"{' / '.join(map(str, want))})")
+        if launches != want:
+            fails.append(f"the add-on's runs launched {launches}, want "
+                         f"{want}")
+        if fails:
+            raise AssertionError("add-on:\n" + "\n".join(fails))
+
+        # Through the add-on against through the surface, in turns.
+        turns = {"analyze frames/s": [], "tracking frames/s": []}
+        for i, how in enumerate(("surface", "add-on", "add-on", "surface")):
+            path = os.path.join(workdir, f"addon_turn{i}.db")
+            seconds = (surface_analyze(path) if how == "surface"
+                       else addon_analyze(path))
+            turns["analyze frames/s"].append((how, n / seconds))
+            seconds = (surface_track() if how == "surface"
+                       else addon_track(tracker)[0])
+            turns["tracking frames/s"].append((how, last / seconds))
+        for what, runs in turns.items():
+            print(f"  {what} (through the surface, through the add-on, in "
+                  f"turns): " + ", ".join(f"{how} {value:.4f}"
+                                          for how, value in runs)
+                  + f" on {smi}")
+        shim.unregister()
+    return launches
+
+
 def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     if not torch.cuda.is_available():
@@ -2659,14 +3154,16 @@ def main() -> None:
         pin_ms, pin_launches, pin_err = pin_phase(device)
         print(f"pin drag {pin_ms:.4f} ms per 8-pin solve on {smi}")
         print("surface phase (polychase_core with no device argument):")
-        k1_surface, lk_surface = surface_phase(device, frames, analyze_db,
-                                               track, refine, workdir, smi)
+        k1_surface, lk_surface, surface = surface_phase(
+            device, frames, analyze_db, track, refine, workdir, smi)
         print("segments phase (track_segments and refine_segments):")
         k1_segments, seg_err = segments_phase(device, track, refine, smi)
         print("sharded phase (analyze and refine split over devices):")
         lk_sharded = sharded_phase(device, frames, analyze_db, refine, smi)
         print("analyze-routes phase (GFTT device suppression, chained fan):")
         routes = routes_phase(device, frames, analyze_db, smi)
+        print("add-on phase (the Blender add-on from its zip, on the card):")
+        addon = addon_phase(device, frames, track, surface, workdir, smi)
 
     (k2_ms, k2_plain), (k3_ms, k3_plain) = lk_times
     (k2_bound_ms, k2_by), (k3_bound_ms, k3_by) = lk_bounds
@@ -2677,7 +3174,8 @@ def main() -> None:
     # drags), ``surface_launches`` the surface phase's gated runs,
     # ``segments_launches`` the gated ``track_segments`` run,
     # ``sharded_launches`` the gated split analyze, ``routes_launches`` the
-    # gated chained analyze and ``routes_sharded_launches`` its split.
+    # gated chained analyze, ``routes_sharded_launches`` its split and
+    # ``addon_launches`` the add-on phase's gated runs.
     kernels = [{
         "name": "pnp_lm",
         "route": "cuda",
@@ -2686,6 +3184,7 @@ def main() -> None:
         "launches": launches + pin_launches,
         "surface_launches": k1_surface,
         "segments_launches": k1_segments,
+        "addon_launches": addon[0],
         "max_abs_err": max(max_err, path_err, pin_err, seg_err),
         "ms": k1_ms,
         "plain_ms": k1_plain,
@@ -2702,6 +3201,7 @@ def main() -> None:
         "sharded_launches": lk_sharded[0],
         "routes_launches": routes["routes_launches"][0],
         "routes_sharded_launches": routes["split_launches"][0],
+        "addon_launches": addon[1],
         "max_abs_err": patch_err,
         "ms": k2_ms,
         "plain_ms": k2_plain,
@@ -2718,6 +3218,7 @@ def main() -> None:
         "sharded_launches": lk_sharded[1],
         "routes_launches": routes["routes_launches"][1],
         "routes_sharded_launches": routes["split_launches"][1],
+        "addon_launches": addon[2],
         "max_abs_err": pos_err,
         "ms": k3_ms,
         "plain_ms": k3_plain,
@@ -2740,6 +3241,7 @@ def main() -> None:
         "rounds": routes["clip_rounds"],
         "floor_ms": routes["floor_ms"],
         "routes_launches": routes["routes_launches"][2],
+        "addon_launches": addon[3],
         "max_abs_err": routes["max_abs_err"],
         "ms": routes["ms"],
         "plain_ms": routes["plain_ms"],

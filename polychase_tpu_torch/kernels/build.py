@@ -1,8 +1,8 @@
 """Build a CUDA source of ``csrc/`` into a shared library at first use.
 
 The library has a plain C interface and is loaded with ctypes.  It is built
-with ``nvcc`` for ``sm_90a`` (Hopper) into ``build/torch_kernels/`` at the
-root of the checkout, under a name keyed by a hash of the source, so an edit
+with ``nvcc`` for ``sm_90a`` (Hopper) into ``torch_kernels/`` under
+:func:`build_root`, under a name keyed by a hash of the source, so an edit
 rebuilds and an unchanged source is built once.  No ``--use_fast_math``: the
 kernels keep IEEE f32 division, square roots and denormals.
 """
@@ -20,7 +20,25 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+
+def build_root() -> Path:
+    """Where the port builds its libraries (the kernels here, the host
+    library in ``native``): ``build/`` at the root of a checkout (the
+    package's parent holds ``pyproject.toml``), else the user's cache,
+    ``$XDG_CACHE_HOME/polychase_tpu_torch/`` or
+    ``~/.cache/polychase_tpu_torch/``, since an installed wheel or an
+    extracted add-on does not own the directory around it."""
+    checkout = Path(__file__).resolve().parents[2]
+    if (checkout / "pyproject.toml").is_file():
+        return checkout / "build"
+    cache = os.environ.get("XDG_CACHE_HOME", "")
+    if not os.path.isabs(cache):  # unset, or not absolute: the XDG default
+        cache = os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(cache) / "polychase_tpu_torch"
+
+
+BUILD_DIR = build_root() / "torch_kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -3,13 +3,14 @@
 ``host.cc`` holds the BVH ray caster (refine's prim refresh on large
 meshes), GFTT's fused quality sort + suppression and the quality order of
 the device-suppressed GFTT route (:func:`quality_order`).  It is built at first
-use with ``g++ -O3 -shared -fPIC -std=c++17`` into ``build/torch_native/``
-at the root of the checkout, under a name keyed by a hash of the source (as
-``kernels/build.py`` keys the CUDA kernels), so an edit rebuilds and an
-unchanged source is built once.  Where no compiler is found or the build
-fails, :func:`available` is False and :func:`native_fn` returns None: the
-callers then take their host routes (GFTT's numpy finish, refine's device
-sweep), which compute the same results.
+use with ``g++ -O3 -shared -fPIC -std=c++17`` into ``torch_native/`` under
+``kernels.build.build_root()`` (``build/`` in a checkout, else the user's
+cache), under a name keyed by a hash of the source (as ``kernels/build.py``
+keys the CUDA kernels), so an edit rebuilds and an unchanged source is built
+once.  Where no compiler is found or the build fails, :func:`available` is
+False and :func:`native_fn` returns None: the callers then take their host
+routes (GFTT's numpy finish, refine's device sweep), which compute the same
+results, and a warning says why.
 """
 
 from __future__ import annotations
@@ -26,8 +27,10 @@ from typing import Optional
 
 import numpy as np
 
+from ..kernels.build import build_root
+
 SOURCE = Path(__file__).resolve().parent / "host.cc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
+BUILD_DIR = build_root() / "torch_native"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
@@ -66,7 +69,7 @@ def _load() -> Optional[ctypes.CDLL]:
                 _build(out)
             lib = ctypes.CDLL(str(out))
         except (OSError, subprocess.CalledProcessError) as exc:
-            logging.getLogger(__name__).info(
+            logging.getLogger(__name__).warning(
                 "host library unavailable (%s); host routes in use", exc)
             _failed = True
             return None

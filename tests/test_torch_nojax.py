@@ -8,7 +8,10 @@ by features over two), and an import of every module of the package and of
 ``chip_smoke.py``, each in a fresh process whose import system refuses
 ``jax``, ``jaxlib``, ``polychase_tpu`` and every ``polychase_tpu.*`` module
 (``polychase_tpu_torch`` is another top-level name and stays
-importable)."""
+importable): the add-on copy's modules under the fake bpy
+(tests/fake_bpy.py) and the stub generator too.  The sources of the port
+and of the scripts that package it or drive it on the card are also read
+for import statements naming jax or the JAX package."""
 
 import os
 import subprocess
@@ -376,7 +379,14 @@ ANALYZE_ROUTES = REFUSE_JAX + textwrap.dedent(
 IMPORT_ALL = REFUSE_JAX + textwrap.dedent(
     """
     import importlib
+    import importlib.util
     import pkgutil
+
+    # The add-on's modules import bpy: the behavioral fake stands in.
+    sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+    import fake_bpy
+
+    fake_bpy.install(fake_bpy.FakeScene())
 
     import polychase_tpu_torch
 
@@ -384,12 +394,42 @@ IMPORT_ALL = REFUSE_JAX + textwrap.dedent(
         polychase_tpu_torch.__path__, "polychase_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    addon = [n for n in names
+             if n.startswith("polychase_tpu_torch.blender_addon.")]
+    assert len(addon) == 19, addon
     import chip_smoke  # noqa: F401
+
+    spec = importlib.util.spec_from_file_location(
+        "generate_stubs_torch", os.path.join("scripts",
+                                             "generate_stubs_torch.py"))
+    stubs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(stubs)
+    assert "class AcceleratedMesh" in stubs.main()
 
     assert_nothing_leaked()
     print("imported", len(names), "modules and chip_smoke without jax")
     """
 )
+
+# What must import neither jax nor the JAX package: the port, its add-on
+# and the scripts that package it or run it on the card.
+NO_JAX_FILES = ["chip_smoke.py", "scripts/package_addon_torch.py",
+                "scripts/generate_stubs_torch.py"]
+
+
+def _imported_roots(path):
+    """The top-level names of the absolute imports of a source file."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
 
 
 def _run(script):
@@ -442,3 +482,18 @@ def test_every_module_and_chip_smoke_import_without_jax():
     proc = _run(IMPORT_ALL)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "modules and chip_smoke without jax" in proc.stdout
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    """No module of the port (its add-on copy included) and none of the
+    scripts that package it or drive it on the card names jax, jaxlib or
+    ``polychase_tpu`` in an import statement."""
+    files = list(NO_JAX_FILES)
+    for root, _, names in os.walk(os.path.join(REPO, "polychase_tpu_torch")):
+        files += [os.path.relpath(os.path.join(root, n), REPO)
+                  for n in names if n.endswith(".py")]
+    assert any("blender_addon" in f for f in files)
+    for path in files:
+        bad = _imported_roots(os.path.join(REPO, path)) & {
+            "jax", "jaxlib", "polychase_tpu"}
+        assert not bad, (path, bad)
