@@ -6,10 +6,11 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     python3 chip_smoke.py
 
 1. Prints the torch and CUDA versions and the card's name and power limit.
-2. Builds the four kernels with nvcc, one process per source, in
+2. Builds the five kernels with nvcc, one process per source, in
    parallel: K1 the whole-solve LM PnP (csrc/pnp_lm.cu), K2 the LK prep
    (csrc/lk_prep.cu), K3 the LK iteration (csrc/lk_iter.cu), K4 GFTT's
-   min-distance suppression (csrc/gftt_suppress.cu).
+   min-distance suppression (csrc/gftt_suppress.cu), K5 the closest-hit
+   sweep of ``raycast_grouped`` (csrc/raycast_sweep.cu).
 3. K1 phase: the kernel against its plain torch version on the card,
    over every loss × function_tol × (opt_f, opt_pp), points behind the
    camera, all points masked, N = 16384 and a batch of 8 solves, and over
@@ -40,9 +41,11 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    analyze frames/s and the device busy share.
 6. Tracking phase: a synthetic 1920×1080, f = 1800, 120-frame orbit clip
    over a 20,224-triangle sphere with 2048 keypoints per frame and 0.3 px
-   flow noise, written to a flow DB, tracked through ``track_sequence``
-   forward over 119 frames, backward over 60, and over 24 frames with free
-   focal length and principal point.  Checks that every solve launched K1
+   flow noise, written to a flow DB (its keypoints cast on a CPU copy of
+   the mesh, by the plain sweep, so that the truth does not pass through
+   K5), tracked through ``track_sequence`` forward over 119 frames,
+   backward over 60, and over 24 frames with free focal length and
+   principal point.  Checks that every frame step launched K1 and K5 once
    and that every pose lies within the ground-truth thresholds, and holds
    K1 against its plain version on solver inputs recorded from a warm-up
    run of the same path (N = 8192), timing the last one with its launch
@@ -56,23 +59,44 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    bit, the median translation error falls, every rotation error ≤ 2e-3
    rad) and a run under ``torch.profiler`` for the device time of the prim
    refresh ray cast, the normal equations, the solve and the cost, and the
-   device busy share.  One normal system of the problem (P = 2250, nb = 32,
-   bs = 72) is solved by the banded and the dense solve, timed, and the two
-   steps held within 1e-3 of each other.
-8. Pin phase (config 2, ``run_all.py:219-265``): 20 timed 8-pin Camera-type
-   drags and one drag of 16,384 surface points; every drag above
+   device busy share; K5 launched once per prim refresh of the timed run
+   (the device route, below ``refiner.BVH_TRIANGLE_THRESHOLD``).  The
+   clip's DB is cast by the plain sweep on the card, as before K5, not by
+   K5.  One normal system of the problem (P = 2250, nb = 32, bs = 72) is
+   solved by the banded and the dense solve, timed, and the two steps
+   held within 1e-3 of each other.
+8. K5 phase: K5 against its plain version (``engine.raycast.sweep_plain``)
+   on the card, on seven scenes: a tracking frame's sweep inputs recorded
+   from the tracking phase (8192 rays, 20,224 triangles), config 4's prim
+   refresh recorded from the refine phase (250 × 128 rays, 1,472
+   triangles), those rays on the sphere with 40 triangles masked (the
+   whole ``raycast_grouped`` also held against its cast through the plain
+   sweep), on the sphere with every triangle twice (the id must be the
+   lower copy's), and as 32,000 groups of one ray (the sharded flat cast's
+   shape), 7 groups of 333 rays over 5,040 triangles (neither a multiple
+   of the block or the tile), and the tracking frame's rays turned around
+   (no hit).  Ids equal on every ray, but where both triangles are hit with
+   t within 1e-6 relative (a tie on an edge or a vertex: such rays are
+   counted); t within 1e-6 relative on equal ids.  Prints per scene both
+   times, the bound and its share, and the launches.  Then forward
+   tracking frames/s with K5 and with the plain sweep, in turns, and a
+   profiled K5 run's busy share and device time by kernel.
+9. Pin phase (config 2, ``run_all.py:219-265``): 20 timed 8-pin Camera-type
+   drags and one drag of 16,384 surface points (the pins cast on a CPU copy
+   of the mesh here and in the surface and add-on phases); every drag above
    ``pinmode.HOST_PIN_MAX`` points must launch K1 once, the big drag must
    agree with the host route within 1e-4, and K1 is held against its plain
    version on the drags' solver inputs.  (The host and device route times
    per pin count are ``python3 -m polychase_tpu_torch.crossover``'s.)
-9. Surface phase: the data of the phases above through
+10. Surface phase: the data of the phases above through
    ``polychase_tpu_torch.polychase_core`` with no device argument, so on
    the card by default (analyze and refine on every card).  An
    ``OpticalFlowThread`` on the panning clip (analyze's gates, the direct
    run's keypoints and pairs, each frame requested once, K2 and K3 once per
    level of every solve, and of every shard with several cards); a forward
    ``TrackerThread`` over the tracking clip (the ground truth, the direct
-   run's poses within 1e-6, one K1 launch a frame); a ``RefinerThread`` on
+   run's poses within 1e-6, one K1 and one K5 launch a frame); a
+   ``RefinerThread`` on
    config 4 (refine's gates); 20 8-pin drags and one 16,384-point drag
    through ``find_transformation`` (the engine's result within 1e-6, K1 once
    per drag above ``pinmode.HOST_PIN_MAX``); 64 ``ray_cast`` picks
@@ -81,11 +105,11 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    analyze frames/s and the 8-pin drag's ms, direct and through the
    surface (the threads, ``find_transformation``), in the order direct,
    surface, surface, direct.
-10. Segments phase: the segment-parallel paths.  ``track_segments`` on
+11. Segments phase: the segment-parallel paths.  ``track_segments`` on
     the tracking clip in 4 segments of 30 frames seeded from the truth at
     frames 0, 30, 60 and 90 (K1 at S = 4, N = 8192 a solve): every pose
     within the ground-truth thresholds and within 1e-4 (q) / 1e-3 (t) of
-    the sequential ``track_camera_trajectory`` from the same seed, K1
+    the sequential ``track_camera_trajectory`` from the same seed, K1 and K5
     launched once per step (29), not once per segment frame (116), and K1
     held against its plain version on S = 4 inputs recorded from the path.
     ``refine_segments`` on config 4's clip split at keyframes 0, 50, 100,
@@ -100,7 +124,7 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     1e-6.  Prints tracking frames/s and refine seconds, sequential against
     segment-parallel, in turns (sequential, parallel, parallel,
     sequential).
-11. Sharded phase: analyze and refine split over every card, or over two
+12. Sharded phase: analyze and refine split over every card, or over two
     shards on card 0 when there is one (that runs the split, the per-shard
     launches and the sum, and measures no scaling).  The 24-frame panning
     clip through ``generate_optical_flow_database(device=list)`` (its
@@ -120,7 +144,7 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     cost within 1e-4 (relative) and every pose within 1e-4 rad and 1e-4.
     Then analyze frames/s and refine seconds, one device against the list,
     in turns (one, list, list, one).
-12. Analyze-routes phase: K4 against its plain version
+13. Analyze-routes phase: K4 against its plain version
     (``suppress_plain`` + ``_compact_kept``) on the clip's response maps
     (every 4th frame) and one 3840×2160 noise frame at d ∈ {1, 2.5, 5, 8}
     (kept maps and kept lists equal to the bit, converged, the same
@@ -143,12 +167,12 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     shards on card 0) against the one-device chained DB, with its K2/K3
     launches; the frames resumed on the card (a fixed point that outlasts
     ``gftt.MAX_ROUNDS`` rounds) in the whole run.
-13. Add-on phase: the Blender add-on copy as a user installs it.  The zip
+14. Add-on phase: the Blender add-on copy as a user installs it.  The zip
     of ``scripts/package_addon_torch.py`` is built and extracted into a
     temporary directory outside the checkout, its shim imported under the
     fake bpy of ``tests/`` with the checkout's package set aside and a fresh
     user cache as ``XDG_CACHE_HOME``: the package comes from the zip, no
-    jax is loaded, the host library and K1-K4 build from the zip's sources
+    jax is loaded, the host library and K1-K5 build from the zip's sources
     into the user cache.  With ``core.DEVICE`` left at None (the card):
     ``PC_OT_AnalyzeVideo`` through its modal loop on the 24-frame panning
     clip (served as Blender's float pixels), its DB equal to the surface
@@ -159,17 +183,17 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     back by the add-on's own code, and within the ground-truth thresholds
     (the difference from the surface phase's OpenCV poses printed); one
     8-pin drag of pin 2 through pin mode within ``PIN_ROUTE_ATOL`` of the
-    pin phase's drag; K1-K4 launched as the runs need.  Then analyze and
+    pin phase's drag; K1-K5 launched as the runs need (K5 once a tracked
+    frame).  Then analyze and
     tracking frames/s through the surface and through the add-on, in turns
     (surface, add-on, add-on, surface).
-14. Prints the card, the kernels' JSON line (time, plain time, bound and
+15. Prints the card, the kernels' JSON line (time, plain time, bound and
     what sets it, launches on the main path (the analyze, tracking and pin
-    phases) and apart in the surface, segments, sharded, routes and add-on
-    phases,
-    for K4 also its CUDA launches (one a call), the rounds of the main
-    path's frames, both neighbour reads' times and its floor, largest
-    difference) and, last,
-    ``{"ok": true, ...}``.
+    phases) and apart in the refine, surface, segments, sharded, routes and
+    add-on phases, for K4 and K5 also their CUDA launches (one a call), for
+    K4 the rounds of the main path's frames, both neighbour reads' times
+    and its floor, for K5 config 4's refresh times, largest difference)
+    and, last, ``{"ok": true, ...}``.
 
 Any failed check raises, so the script exits non-zero without the last line.
 It refuses to run without a CUDA device.
@@ -232,6 +256,8 @@ TRACK_SEEDS, TRACK_SEGMENT = (0, 30, 60, 90), 30
 REFINE_KEYS = (0, 50, 100, 150, 200, 249)
 Q_PAIR, T_PAIR = 1e-4, 1e-3
 REFINE_T_SHARE, REFINE_SEQ_ATOL = 0.6, 2e-4
+# Where the truth is cast (tracking's and refine's flow DBs, the pins).
+CPU = torch.device("cpu")
 
 
 def nvidia_smi() -> str:
@@ -833,7 +859,7 @@ def analyze_phase(device, frames, workdir):
     seconds = run(path)
     launches = (lk_prep.launches, lk_iter.launches, gftt_suppress.launches)
     k4_queued = gftt_suppress.cuda_launches() - queued0
-    pwall, _, busy_ms, busy = profile_split(
+    pwall, _, busy_ms, busy, _ = profile_split(
         lambda: run(os.path.join(workdir, "analyze_profiled.db")), device, ())
     print(f"  clip: {width}x{height}")
     fails = analyze_gates(*read_analyze_db(path, n), n)
@@ -931,11 +957,12 @@ def main_path_inputs_check(inputs, path="main-path"):
 
 def main_path_phase(device, workdir, *, n_frames=N_FRAMES,
                     keypoints=KEYPOINTS, sphere=SPHERE, seed=1):
-    """Tracking on the card, its flow DB written into ``workdir``.  Returns
-    K1's launches, forward frames/s, K1's largest difference from its plain
-    version on recorded inputs, and what the surface phase reuses: the DB,
-    the mesh's arrays, the ground truth, the forward run's results and the
-    run itself."""
+    """Tracking on the card, its flow DB written into ``workdir`` (cast on
+    the host).  Returns K1's launches, forward frames/s, K1's largest
+    difference from its plain version on recorded inputs, and what later
+    phases reuse: the DB, the mesh's arrays, the ground truth, the forward
+    run's results, the run itself, K5's launches and a frame's recorded
+    sweep inputs."""
     from polychase_tpu_torch.engine.camera import OPENCV, Intrinsics
     from polychase_tpu_torch.engine.geometry import (
         Mesh, SceneTransformations,
@@ -943,7 +970,7 @@ def main_path_phase(device, workdir, *, n_frames=N_FRAMES,
     from polychase_tpu_torch.engine.levmarq import BundleOptions
     from polychase_tpu_torch.engine.pose import quat_to_mat_np
     from polychase_tpu_torch.engine import tracker
-    from polychase_tpu_torch.kernels import pnp_lm
+    from polychase_tpu_torch.kernels import pnp_lm, raycast_sweep
     from polychase_tpu_torch.synthetic import (
         build_flow_db, orbit_poses, uv_sphere,
     )
@@ -1009,48 +1036,62 @@ def main_path_phase(device, workdir, *, n_frames=N_FRAMES,
 
     db_path = os.path.join(workdir, "track.db")
     t0 = time.perf_counter()
-    build_flow_db(db_path, mesh, FOCAL, WIDTH, HEIGHT, poses, rng,
-                  keypoints, NOISE_PX)
-    print(f"  flow DB written in {time.perf_counter() - t0:.2f} s")
-    # Warm-up (first launches, allocator), recording the solver's
-    # inputs: K1 is then held against its plain version on the very
-    # tensors the main path hands it.
-    inputs = []
-    real = tracker.solve_arrays_lm
+    # The truth's keypoints are cast by the plain sweep on a CPU copy of
+    # the mesh, not by K5, which the path under test runs.
+    build_flow_db(db_path, Mesh.create(verts, tris, device="cpu"), FOCAL,
+                  WIDTH, HEIGHT, poses, rng, keypoints, NOISE_PX)
+    print(f"  flow DB written in {time.perf_counter() - t0:.2f} s (cast on "
+          f"the host)")
+    # Warm-up (first launches, allocator), recording the solver's and the
+    # sweep's inputs: K1 and K5 are then held against their plain versions
+    # on the very tensors the main path hands them.
+    inputs, sweeps = [], []
+    real, real_sweep = tracker.solve_arrays_lm, raycast_sweep.raycast_sweep
 
     def record(*args, **kw):
         inputs.append((args, kw))
         return real(*args, **kw)
 
+    def record_sweep(*args, **kw):
+        sweeps.append(args[:5])
+        return real_sweep(*args, **kw)
+
     tracker.solve_arrays_lm = record
+    raycast_sweep.raycast_sweep = record_sweep
     try:
         run(db_path, 0, 8)
     finally:
         tracker.solve_arrays_lm = real
+        raycast_sweep.raycast_sweep = real_sweep
     path_err, _ = main_path_inputs_check(inputs)
 
-    pnp_lm.launches = 0
+    pnp_lm.launches = raycast_sweep.launches = 0
+    # K5's library counts the launches the runtime accepted.
+    queued0 = raycast_sweep.cuda_launches()
     fwd, fwd_s = run(db_path, 0, n_frames - 1)
     half = n_frames // 2
     bwd, _ = run(db_path, half, 0)
     seg = min(24, n_frames - 1)
     opt, _ = run(db_path, 0, seg, opt=True)
-    launches = pnp_lm.launches
+    launches, k5_launches = pnp_lm.launches, raycast_sweep.launches
+    k5_queued = raycast_sweep.cuda_launches() - queued0
 
     solved = (n_frames - 1) + half + seg
     check("forward", fwd, n_frames - 1)
     check("backward", bwd, half)
     check("opt f+pp", opt, seg, opt=True)
-    if launches != solved:
+    if (launches, k5_launches, k5_queued) != (solved,) * 3:
         raise AssertionError(
-            f"K1 launched {launches} times for {solved} solved frames")
+            f"K1 and K5 launched {launches} and {k5_launches} times "
+            f"({k5_queued} CUDA launches of K5) for {solved} solved frames")
     fps = (n_frames - 1) / fwd_s
-    print(f"  K1 launches on the main path: {launches} "
-          f"(= {solved} frames solved)")
+    print(f"  K1 / K5 launches on the main path: {launches} / {k5_launches} "
+          f"(= {solved} frame steps; K5's CUDA launches {k5_queued})")
     print(f"  forward tracking: {n_frames - 1} frames in {fwd_s:.3f} s = "
           f"{fps:.2f} frames/s")
     track = dict(db=db_path, verts=verts, tris=tris, poses=poses, fwd=fwd,
-                 run=run)
+                 run=run, k5_launches=k5_launches,
+                 k5_cuda_launches=k5_queued, sweep=sweeps[-1])
     return launches, fps, path_err, track
 
 
@@ -1061,8 +1102,9 @@ def main_path_phase(device, workdir, *, n_frames=N_FRAMES,
 
 def profile_split(fn, device, labels=REFINE_LABELS):
     """Run ``fn`` under ``torch.profiler``; returns the host-clock seconds,
-    the device time of each of ``labels`` (ms), the device's busy time (ms)
-    and the busy share.  A label's time is that of the kernels under the
+    the device time of each of ``labels`` (ms), the device's busy time (ms),
+    the busy share and the device time (ms) of each kernel, copy and fill
+    by name, largest first.  A label's time is that of the kernels under the
     ops it encloses.  The busy time is the union of the intervals of every
     kernel, copy and fill the device ran, whether a torch op launched it or
     not (K1, K2 and K3 launch through ctypes, outside any op).  The spans
@@ -1082,10 +1124,14 @@ def profile_split(fn, device, labels=REFINE_LABELS):
     split = {lbl: sum(e.device_time_total for e in cpu if e.name == lbl) / 1e3
              for lbl in labels}
     host_names = {e.name for e in cpu}
-    spans = sorted((e.start_ns(), e.end_ns())
-                   for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == torch.autograd.DeviceType.CUDA
-                   and e.name() not in host_names)
+    device = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA
+              and e.name() not in host_names]
+    spans = sorted((e.start_ns(), e.end_ns()) for e in device)
+    by_name = {}
+    for e in device:
+        by_name[e.name()] = (by_name.get(e.name(), 0.0)
+                             + (e.end_ns() - e.start_ns()) / 1e6)
     busy_ns, end = 0, None
     for lo, hi in spans:
         if end is None or lo > end:
@@ -1094,7 +1140,8 @@ def profile_split(fn, device, labels=REFINE_LABELS):
         elif hi > end:
             busy_ns += hi - end
             end = hi
-    return wall, split, busy_ns / 1e6, busy_ns / 1e9 / wall
+    return (wall, split, busy_ns / 1e6, busy_ns / 1e9 / wall,
+            sorted(by_name.items(), key=lambda kv: -kv[1]))
 
 
 def band_solve_check(device, db_path, traj, mesh):
@@ -1192,18 +1239,28 @@ def refine_inputs(device, workdir, *, n_frames=REFINE_FRAMES,
         return noisy_trajectory(poses, intr, rng, REFINE_T_SIGMA)
 
     db_path = os.path.join(workdir, "refine.db")
-    build_flow_db(db_path, mesh, FOCAL, WIDTH, HEIGHT, poses, rng,
-                  keypoints, NOISE_PX)
+    # Cast by the plain sweep on the card, as before K5, not by K5.  Cast
+    # on the host, its hits round differently in their last bits, which
+    # moves refine_segments from the sequential refines past
+    # REFINE_SEQ_ATOL: the two paths' LM decisions part where a refresh
+    # moves a prim or at a tolerance stop (``python3 -m
+    # polychase_tpu_torch.segments_compare``; PERF.md, section 7).
+    with plain_sweep():
+        build_flow_db(db_path, mesh, FOCAL, WIDTH, HEIGHT, poses, rng,
+                      keypoints, NOISE_PX)
     return dict(db=db_path, verts=verts, tris=tris, poses=poses,
                 noisy=noisy), mesh
 
 
 def refine_phase(device, workdir, **size):
     """Config 4 on the card, its flow DB written into ``workdir``.  Returns
-    the timed run's wall seconds and iteration count, and what the surface
-    phase reuses: ``refine_inputs``' dict."""
+    the timed run's wall seconds and iteration count, and what later phases
+    reuse: ``refine_inputs``' dict, with K5's launches in the timed run and
+    a prim refresh's recorded sweep inputs."""
+    from polychase_tpu_torch.engine import refiner as R
     from polychase_tpu_torch.engine.levmarq import CAUCHY, BundleOptions
     from polychase_tpu_torch.engine.refiner import refine_trajectory
+    from polychase_tpu_torch.kernels import raycast_sweep
 
     refine, mesh = refine_inputs(device, workdir, **size)
     db_path, poses, noisy = refine["db"], refine["poses"], refine["noisy"]
@@ -1220,7 +1277,20 @@ def refine_phase(device, workdir, **size):
         torch.cuda.synchronize(device)
         return time.perf_counter() - t0
 
-    warm = run(noisy())
+    if R._refresh_routing(mesh):
+        raise AssertionError("config 4's mesh took the host BVH route")
+    sweeps = []
+    real_sweep, real_refresh = raycast_sweep.raycast_sweep, R.refresh_prims
+
+    def record_sweep(*args, **kw):
+        sweeps.append(args[:5])
+        return real_sweep(*args, **kw)
+
+    raycast_sweep.raycast_sweep = record_sweep
+    try:
+        warm = run(noisy())
+    finally:
+        raycast_sweep.raycast_sweep = real_sweep
     traj = noisy()
     band = band_solve_check(device, db_path, traj, mesh)
 
@@ -1232,8 +1302,19 @@ def refine_phase(device, workdir, **size):
     ends = [state(i) for i in (0, n_frames - 1)]
     before = np.array([np.linalg.norm(state(i)[1] - poses[i][1])
                        for i in range(n_frames)])
-    updates = []
-    wall = run(traj, lambda u: updates.append(u) or True)
+    updates, refreshes = [], []
+
+    def count_refresh(*args, **kw):
+        refreshes.append(1)
+        return real_refresh(*args, **kw)
+
+    raycast_sweep.launches = 0
+    R.refresh_prims = count_refresh
+    try:
+        wall = run(traj, lambda u: updates.append(u) or True)
+    finally:
+        R.refresh_prims = real_refresh
+    k5_launches = raycast_sweep.launches
     split = profile_split(lambda: run(noisy()), device)
 
     stats = updates[-1].stats
@@ -1241,20 +1322,247 @@ def refine_phase(device, workdir, **size):
     print(f"  refine: {iters} iterations in {wall:.4f} s (warm-up run "
           f"{warm:.4f} s)")
     fails = refine_gates(state, poses, ends, before, stats)
+    print(f"  K5 launches in the timed run: {k5_launches} (= "
+          f"{len(refreshes)} prim refreshes on the device route)")
+    if k5_launches != len(refreshes) or not refreshes:
+        fails.append(f"K5 launched {k5_launches} times for "
+                     f"{len(refreshes)} prim refreshes")
     (nb, bs), n0, band_ms, dense_ms, rel = band
     print(f"  one normal system (P = {n0}, nb = {nb}, bs = {bs}): banded "
           f"{band_ms:.4f} ms, dense {dense_ms:.4f} ms, steps differ by "
           f"{rel:.3g} (rel)")
     if rel > BAND_REL_MAX:
         fails.append(f"banded and dense steps differ by {rel:.3g}")
-    pwall, labels, busy_ms, busy = split
+    pwall, labels, busy_ms, busy, _ = split
     print(f"  profiled run: {pwall:.4f} s, device time {busy_ms:.3f} ms, "
           f"busy share {busy:.4f}; device ms by stage: "
           + ", ".join(f"{k.split('.')[1]} {v:.3f}" for k, v in labels.items())
           + f", other {busy_ms - sum(labels.values()):.3f}")
     if fails:
         raise AssertionError("refine:\n" + "\n".join(fails))
+    refine.update(k5_launches=k5_launches, sweep=sweeps[0])
     return wall, iters, refine
+
+
+# ---------------------------------------------------------------------------
+# K5 phase
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_sweep():
+    """``raycast_grouped`` through the plain sweep (``sweep_plain``) on
+    every device for the block, K5 set aside."""
+    from polychase_tpu_torch.engine.raycast import sweep_plain
+    from polychase_tpu_torch.kernels import raycast_sweep
+
+    real = raycast_sweep.raycast_sweep
+    raycast_sweep.raycast_sweep = lambda *a, **kw: sweep_plain(*a[:6])
+    try:
+        yield
+    finally:
+        raycast_sweep.raycast_sweep = real
+
+
+# K5 against its plain version: t on equal ids, and the two t's of a ray
+# whose ids differ (a tie on an edge or a vertex), relative.
+K5_T_RTOL = 1e-6
+# f32 operations of K5 (csrc/raycast_sweep.cu), counted from its source: a
+# (ray, triangle) pair's three dot products (9 products, 6 sums), 4 sign
+# selects, u + v and 5 compares; a (group, triangle) pair's o - v0 (3), B
+# and Cq (9 each: a product and an FMA a component) and sdet (5); a
+# triangle's A (9).  The divisions, one a pair that passes the test (a few
+# a ray), are left out: under 1e-4 of the count.
+K5_OPS_PAIR, K5_OPS_GROUP_TRI, K5_OPS_TRI = 25, 26, 9
+# Rays of the refresh scenes as groups of one (the sharded flat cast).
+K5_FLAT = 32_000
+
+
+def k5_bound(G, K, T):
+    """K5 on G groups of K rays over T triangles: the triangles (v0, e1,
+    e2), the origins and the directions read once, t (f32) and the id
+    (int64) written once; every pair's, (group, triangle)'s and triangle's
+    operations."""
+    nbytes = T * 36 + G * 12 + G * K * 12 + G * K * 12
+    ops = (G * K * T * K5_OPS_PAIR + G * T * K5_OPS_GROUP_TRI
+           + T * K5_OPS_TRI)
+    return bound_ms(nbytes, ops)
+
+
+def k5_pair_t(args, g, k, j):
+    """The plain sweep's t of ray (g, k) on triangle j alone (infinite
+    where it does not hit it)."""
+    from polychase_tpu_torch.engine.raycast import sweep_plain
+
+    o, d, p1, e1, e2 = args
+    tri = [a[j:j + 1] for a in (p1, e1, e2)]
+    return float(sweep_plain(o[g:g + 1], d[g:g + 1, k:k + 1], *tri)[0])
+
+
+def k5_check(label, args, plain_reps=3):
+    """K5 against ``sweep_plain`` on ``args`` (origins, dirs, p1, e1, e2)
+    on the card; prints both times, the bound, its share and the launch
+    count.  Returns (failures, max |dt| on equal ids, kernel ms, plain ms,
+    (bound ms, what bounds it))."""
+    from polychase_tpu_torch.engine.raycast import INVALID_ID, sweep_plain
+    from polychase_tpu_torch.kernels import raycast_sweep
+
+    o, d, p1, e1, e2 = args
+    G, K = d.shape[:2]
+    T = p1.shape[0]
+    before = (raycast_sweep.launches, raycast_sweep.cuda_launches())
+    t, ids = raycast_sweep.raycast_sweep(*args)
+    launched = (raycast_sweep.launches - before[0],
+                raycast_sweep.cuda_launches() - before[1])
+    ref_t, ref_id = sweep_plain(*args)
+    torch.cuda.synchronize()
+    fails = []
+    if launched != (1, 1):
+        fails.append(f"{label}: K5 launched {launched}, want one call and "
+                     f"one CUDA launch")
+    ties = 0
+    for g, k in torch.nonzero(ids != ref_id).tolist():
+        a, b = int(ids[g, k]), int(ref_id[g, k])
+        if INVALID_ID in (a, b):
+            fails.append(f"{label}: ray ({g}, {k}) hit {a} by K5, {b} plain")
+            continue
+        ta, tb = k5_pair_t(args, g, k, a), k5_pair_t(args, g, k, b)
+        if not abs(ta - tb) <= K5_T_RTOL * abs(tb):
+            fails.append(f"{label}: ray ({g}, {k}) hit {a} at t {ta!r} by "
+                         f"K5, {b} at t {tb!r} plain")
+        ties += 1
+    same = ids == ref_id
+    hit = same & (ref_id != INVALID_ID)
+    dt = (t - ref_t).abs()
+    max_dt = float(dt[hit].max()) if bool(hit.any()) else 0.0
+    rel = float((dt[hit] / ref_t[hit].abs()).max()) if bool(hit.any()) \
+        else 0.0
+    miss = same & (ref_id == INVALID_ID)
+    if rel > K5_T_RTOL or not bool(torch.isinf(t[miss]).all()):
+        fails.append(f"{label}: t differs by {rel:.3g} (relative) on equal "
+                     f"ids")
+    equal_t = int(((t == ref_t) & same).sum())
+    ms = event_ms(lambda: raycast_sweep.raycast_sweep(*args), 20)
+    plain = event_ms(lambda: sweep_plain(*args), plain_reps)
+    bound = k5_bound(G, K, T)
+    plan = raycast_sweep.launch_plan(G, K, T,
+                                     raycast_sweep._sm_count(o.device))
+    print(f"  {label} (G {G}, K {K}, T {T}; {plan}): ids equal on "
+          f"{int(same.sum())} of {G * K} rays ({ties} ties), "
+          f"{int(hit.sum())} hits, t equal to the bit on {equal_t}, max "
+          f"|dt| {max_dt:.3g} ({rel:.3g} relative); K5 {ms:.4f} ms, plain "
+          f"{plain:.4f} ms; bound {bound[0]:.6f} ms ({bound[1]}), "
+          f"{bound[0] / ms:.4f} of it; launches {launched[0]} "
+          f"(CUDA {launched[1]})")
+    return fails, max_dt, ms, plain, bound
+
+
+def k5_tracking_turns(device, track, smi):
+    """Forward tracking over the tracking clip with K5 and with the plain
+    sweep on the card, in turns (K5, plain, plain, K5), then one K5 run
+    under ``torch.profiler``: its busy share and the device time of its
+    largest kernels by name."""
+    run, db = track["run"], track["db"]
+    n = len(track["poses"]) - 1
+    turns = []
+    for how in ("K5", "plain", "plain", "K5"):
+        with plain_sweep() if how == "plain" else contextlib.nullcontext():
+            turns.append((how, n / run(db, 0, n)[1]))
+    print(f"  forward tracking ({n} frames; K5, plain sweep, in turns): "
+          + ", ".join(f"{how} {fps:.4f}" for how, fps in turns)
+          + f" frames/s on {smi}")
+    wall, _, busy_ms, busy, kernels = profile_split(
+        lambda: run(db, 0, n), device, ())
+    print(f"  profiled K5 run: {wall:.4f} s, device time {busy_ms:.3f} ms, "
+          f"busy share {busy:.4f}; device ms by kernel: "
+          + ", ".join(f"{name[:60]} {ms:.3f}" for name, ms in kernels[:8]))
+    return turns
+
+
+def k5_phase(device, track, refine, smi):
+    """K5 against its plain version on the seven scenes of the module
+    docstring (item 8), and tracking with K5 against the plain sweep.
+    Returns the largest |dt| on equal ids, the tracking frame's times and
+    bound, and config 4's refresh times."""
+    from polychase_tpu_torch.engine import raycast as R
+    from polychase_tpu_torch.engine.geometry import (
+        Mesh, mask_array_size, set_mask_bits,
+    )
+    from polychase_tpu_torch.kernels import raycast_sweep
+    from polychase_tpu_torch.synthetic import uv_sphere
+
+    def tris_of(mesh):
+        p1, p2, p3 = mesh.triangle_corners()
+        return p1, p2 - p1, p3 - p1
+
+    frame = track["sweep"]
+    o, d = refine["sweep"][:2]
+    rverts, rtris = refine["verts"], refine["tris"]
+    rng = np.random.default_rng(7)
+    words = np.zeros(mask_array_size(len(rtris)), np.uint32)
+    for i in rng.choice(len(rtris), 40, replace=False):
+        words = set_mask_bits(words, int(i), "mask")
+    masked = Mesh.create(rverts, rtris, words, device=device)
+    twice = Mesh.create(rverts, np.concatenate([rtris, rtris]),
+                        device=device)
+    n_flat = min(K5_FLAT, d.shape[0] * d.shape[1])
+    flat_o = o[:, None, :].expand(d.shape).reshape(-1, 3)[:n_flat]
+    flat_d = d.reshape(-1, 1, 3)[:n_flat]
+    ragged = Mesh.create(*uv_sphere(36, 72), device=device)
+    ang = rng.uniform(0, 2 * np.pi, 7)
+    ro = np.stack([4 * np.sin(ang), rng.uniform(-0.5, 0.5, 7),
+                   -4 * np.cos(ang)], -1).astype(np.float32)
+    rd = (rng.normal(size=(7, 333, 3)) * 0.7 - ro[:, None]).astype(
+        np.float32)
+    scenes = [
+        ("tracking frame", frame),
+        ("config 4 refresh", refine["sweep"]),
+        ("40 triangles masked", (o, d, *tris_of(masked))),
+        ("every triangle twice", (o, d, *tris_of(twice))),
+        ("groups of one ray", (flat_o.contiguous(), flat_d.contiguous(),
+                               *refine["sweep"][2:])),
+        ("K 333, T 5,040", (torch.as_tensor(ro, device=device),
+                            torch.as_tensor(rd, device=device),
+                            *tris_of(ragged))),
+        ("no hit", (frame[0], (-frame[1]).contiguous(), *frame[2:])),
+    ]
+    fails, max_dt, results = [], 0.0, {}
+    for label, args in scenes:
+        f, dt, ms, plain, bound = k5_check(label, args)
+        fails += f
+        max_dt = max(max_dt, dt)
+        results[label] = (ms, plain, bound)
+
+    # Every hit on the doubled mesh is its lower copy's.
+    ids2 = raycast_sweep.raycast_sweep(*scenes[3][1])[1]
+    hit2 = ids2 != R.INVALID_ID
+    if not bool((ids2[hit2] < len(rtris)).all()):
+        fails.append("a hit on the doubled mesh is the upper copy's")
+    # No ray of the turned-around frame hits.
+    if bool((raycast_sweep.raycast_sweep(*scenes[6][1])[1]
+             != R.INVALID_ID).any()):
+        fails.append("a turned-around ray hit the mesh")
+    # The whole cast on the masked mesh against its cast through the plain
+    # sweep: masked closest hits dropped alike.
+    got = R.raycast_grouped(masked, o, d)
+    with plain_sweep():
+        want = R.raycast_grouped(masked, o, d)
+    dpos = float((got.pos - want.pos).abs().max())
+    print(f"  raycast_grouped on the masked mesh: valid equal "
+          f"{bool(torch.equal(got.valid, want.valid))}, prim ids equal "
+          f"{bool(torch.equal(got.prim_id, want.prim_id))}, "
+          f"{int(want.valid.sum())} valid of {want.valid.numel()}, largest "
+          f"position difference {dpos:.3g}")
+    if not (torch.equal(got.valid, want.valid)
+            and torch.equal(got.prim_id, want.prim_id)) or dpos > 1e-5:
+        fails.append("raycast_grouped through K5 differs from its cast "
+                     "through the plain sweep on the masked mesh")
+    if fails:
+        raise AssertionError("K5:\n" + "\n".join(fails))
+    k5_tracking_turns(device, track, smi)
+    ms, plain, bound = results["tracking frame"]
+    return dict(max_abs_err=max_dt, ms=ms, plain_ms=plain, bound=bound,
+                refresh=results["config 4 refresh"])
 
 
 # ---------------------------------------------------------------------------
@@ -1271,8 +1579,9 @@ def pin_phase(device):
     from polychase_tpu_torch.engine import pinmode
     from polychase_tpu_torch.kernels import pnp_lm
 
-    pins, scene = crossover.pin_scene(device, 8)
-    big, _ = crossover.pin_scene(device, PIN_BIG, seed=1)
+    # The pins are cast on the host (a CPU copy of the mesh), not by K5.
+    pins, scene = crossover.pin_scene(CPU, 8)
+    big, _ = crossover.pin_scene(CPU, PIN_BIG, seed=1)
     if len(pins) != 8 or len(big) != PIN_BIG:
         raise AssertionError(f"{len(pins)} and {len(big)} pins hit the mesh")
     drag = crossover.pin_drag
@@ -1378,15 +1687,16 @@ def surface_phase(device, frames, analyze_db, track, refine, workdir, smi):
     argument: an ``OpticalFlowThread`` on the panning clip (the analyze
     gates, the rows of the direct run's DB, K2 and K3 once per level of
     every solve), a forward ``TrackerThread`` over the tracking clip (the
-    ground truth, the direct run's poses, one K1 launch a frame), a
-    ``RefinerThread`` on config 4 (refine's gates), 20 8-pin drags and one
+    ground truth, the direct run's poses, one K1 and one K5 launch a frame),
+    a ``RefinerThread`` on config 4 (refine's gates), 20 8-pin drags and one
     16,384-point drag through ``find_transformation`` (the engine's result,
     K1 once per drag above ``HOST_PIN_MAX``), 64 ``ray_cast`` picks (the
     device ray cast's primitive ids), a ``CppException`` and a clean cancel;
     then tracking and analyze frames/s and the 8-pin drag's ms, direct and
     through the surface, in turns.  Returns the K1, K2 and K3 launches of
     its gated runs and what the add-on phase compares with: the thread's
-    DB and the ``TrackerThread``'s poses by frame."""
+    DB and the ``TrackerThread``'s poses by frame, with K5's launches in
+    the ``TrackerThread``."""
     import polychase_tpu_torch.polychase_core as pc
     from polychase_tpu_torch import crossover
     from polychase_tpu_torch.backend import surface_devices
@@ -1395,7 +1705,9 @@ def surface_phase(device, frames, analyze_db, track, refine, workdir, smi):
     from polychase_tpu_torch.engine.opticalflow import (
         VideoInfo, generate_optical_flow_database,
     )
-    from polychase_tpu_torch.kernels import lk_iter, lk_prep, pnp_lm
+    from polychase_tpu_torch.kernels import (
+        lk_iter, lk_prep, pnp_lm, raycast_sweep,
+    )
 
     fails = []
     n = len(frames)
@@ -1463,9 +1775,9 @@ def surface_phase(device, frames, analyze_db, track, refine, workdir, smi):
             raise errors[0]
         return results, seconds
 
-    pnp_lm.launches = 0
+    pnp_lm.launches = raycast_sweep.launches = 0
     results, seconds = track_thread()
-    k1_track = pnp_lm.launches
+    k1_track, k5_track = pnp_lm.launches, raycast_sweep.launches
     direct = {r.frame: (r.pose.q.numpy(), r.pose.t.numpy())
               for r in track["fwd"]}
     rot = max(quat_err(r.pose.q, poses[r.frame][0]) for r in results)
@@ -1476,7 +1788,11 @@ def surface_phase(device, frames, analyze_db, track, refine, workdir, smi):
                 for r in results)
     print(f"  TrackerThread: {len(results)} frames in {seconds:.3f} s, max "
           f"rot err {rot:.3g} rad, max t err {terr:.3g}; largest difference "
-          f"from the direct run's poses {dpose:.3g}; K1 launches {k1_track}")
+          f"from the direct run's poses {dpose:.3g}; K1 / K5 launches "
+          f"{k1_track} / {k5_track}")
+    if (k1_track, k5_track) != (last, last):
+        fails.append(f"the TrackerThread launched K1 {k1_track} and K5 "
+                     f"{k5_track} times for {last} frames")
     if [r.frame for r in results] != list(range(1, last + 1)):
         fails.append("the TrackerThread's frames are not 1..last")
     if rot > ROT_ERR_MAX or terr > T_ERR_MAX:
@@ -1518,8 +1834,8 @@ def surface_phase(device, frames, analyze_db, track, refine, workdir, smi):
           f"{len(updates)} updates")
     fails += refine_gates(state, rposes, ends, before, updates[-1].stats)
 
-    pins, escene = crossover.pin_scene(device, 8)
-    big, _ = crossover.pin_scene(device, PIN_BIG, seed=1)
+    pins, escene = crossover.pin_scene(CPU, 8)
+    big, _ = crossover.pin_scene(CPU, PIN_BIG, seed=1)
     pscene = pc.SceneTransformations(np.eye(4), escene.view_matrix.numpy(),
                                      intrinsics)
 
@@ -1638,7 +1954,8 @@ def surface_phase(device, frames, analyze_db, track, refine, workdir, smi):
               + ", ".join(f"{how} {value:.4f}" for how, value in runs)
               + f" on {smi}")
     return k1_track + k1_pin, lk_launches, dict(
-        db=path, poses={r.frame: (r.pose.q, r.pose.t) for r in results})
+        db=path, poses={r.frame: (r.pose.q, r.pose.t) for r in results},
+        k5_launches=k5_track)
 
 
 # ---------------------------------------------------------------------------
@@ -1665,10 +1982,10 @@ def segment_cost(db_path, traj, mesh, device, opts) -> float:
 
 def segments_phase(device, track, refine, smi):
     """The segment-parallel paths on the tracking clip and config 4, direct
-    and through ``polychase_core`` (module docstring, item 10).  Returns
-    K1's launches in the gated ``track_segments`` run and K1's largest pose
+    and through ``polychase_core`` (module docstring, item 11).  Returns
+    K1's launches in the gated ``track_segments`` run, K1's largest pose
     difference from its plain version on that path's recorded S = 4
-    launches."""
+    launches, and K5's launches in that run."""
     import polychase_tpu_torch.polychase_core as pc
     from polychase_tpu_torch.engine import refiner as R
     from polychase_tpu_torch.engine import tracker
@@ -1679,7 +1996,7 @@ def segments_phase(device, track, refine, smi):
     from polychase_tpu_torch.engine.pose import Pose
     from polychase_tpu_torch.engine.trajectory import CameraTrajectory
     from polychase_tpu_torch.io.database import Database
-    from polychase_tpu_torch.kernels import pnp_lm
+    from polychase_tpu_torch.kernels import pnp_lm, raycast_sweep
     from polychase_tpu_torch.parallel.segments import refine_segments
     from polychase_tpu_torch.parallel.tracking import track_segments
 
@@ -1752,9 +2069,9 @@ def segments_phase(device, track, refine, smi):
         fails.append(f"track_segments launched {len(inputs)} solves of "
                      f"S = {S}, want {steps} of S = {len(TRACK_SEEDS)}")
 
-    pnp_lm.launches = 0
+    pnp_lm.launches = raycast_sweep.launches = 0
     trajs, counts, _ = parallel_track()
-    launches = pnp_lm.launches
+    launches, k5_launches = pnp_lm.launches, raycast_sweep.launches
     seq, _ = sequential_track()
     rot = terr = dq = dt = 0.0
     for a, b in zip(trajs, seq):
@@ -1768,10 +2085,11 @@ def segments_phase(device, track, refine, smi):
     print(f"  track_segments: {len(TRACK_SEEDS)} segments x {steps} steps, "
           f"{int(counts.min())}-{int(counts.max())} correspondences a solve; "
           f"max rot err {rot:.3g} rad, max t err {terr:.3g}; against the "
-          f"sequential tracks |dq| {dq:.3g}, |dt| {dt:.3g}; K1 launches "
-          f"{launches} (= {steps} steps)")
-    if launches != steps:
-        fails.append(f"K1 launched {launches} times for {steps} steps")
+          f"sequential tracks |dq| {dq:.3g}, |dt| {dt:.3g}; K1 / K5 "
+          f"launches {launches} / {k5_launches} (= {steps} steps)")
+    if (launches, k5_launches) != (steps, steps):
+        fails.append(f"K1 and K5 launched {launches} and {k5_launches} "
+                     f"times for {steps} steps")
     if counts.shape != (len(TRACK_SEEDS), steps) or (counts < 3).any():
         fails.append(f"track_segments counts {counts.shape}, min "
                      f"{int(counts.min())}")
@@ -1946,7 +2264,7 @@ def segments_phase(device, track, refine, smi):
               f"frames; sequential, segment-parallel, in turns): "
               + ", ".join(f"{how} {value:.4f}" for how, value in runs)
               + f" on {smi}")
-    return launches, seg_err
+    return launches, seg_err, k5_launches
 
 
 # ---------------------------------------------------------------------------
@@ -2009,7 +2327,7 @@ def same_solve(got, ref):
 
 def sharded_phase(device, frames, analyze_db, refine, smi):
     """Analyze and refine split over several devices (module docstring,
-    item 11).  Returns the K2 and K3 launches of the gated split analyze."""
+    item 12).  Returns the K2 and K3 launches of the gated split analyze."""
     from polychase_tpu_torch.engine import lk
     from polychase_tpu_torch.engine import refiner as R
     from polychase_tpu_torch.engine.camera import CameraState
@@ -2382,7 +2700,7 @@ def chain_gates(kps, flows, ref_kps, ref_flows):
 
 def routes_phase(device, frames, analyze_db, smi):
     """GFTT's device suppression route and the chained skip fan (module
-    docstring, item 12).  Returns K4's comparison results and the launches
+    docstring, item 13).  Returns K4's comparison results and the launches
     of the gated chained runs."""
     from polychase_tpu_torch.engine import gftt, lk
     from polychase_tpu_torch.engine.opticalflow import (
@@ -2642,7 +2960,8 @@ def routes_phase(device, frames, analyze_db, smi):
 # Add-on phase
 # ---------------------------------------------------------------------------
 
-ADDON_SOURCES = ("pnp_lm.cu", "lk_prep.cu", "lk_iter.cu", "gftt_suppress.cu")
+ADDON_SOURCES = ("pnp_lm.cu", "lk_prep.cu", "lk_iter.cu", "gftt_suppress.cu",
+                 "raycast_sweep.cu")
 # Between the OpenCV and the OpenGL camera frame (its own inverse).
 GL_FLIP = np.diag([1.0, -1.0, -1.0, 1.0])
 PIN_DRAG_TO = (955.0, 542.0)  # crossover.pin_drag's target of pin 2 (k = 0)
@@ -2782,10 +3101,10 @@ def extracted_addon(zip_path, tests_dir):
 def addon_phase(device, frames, track, surface, workdir, smi,
                 addon_device=None):
     """The Blender add-on copy installed from its release zip (module
-    docstring, item 13), its engine calls on ``addon_device``, the copy's
+    docstring, item 14), its engine calls on ``addon_device``, the copy's
     ``core.DEVICE`` (None: the card, as a user's Blender runs it).
-    ``device`` runs the checkout's reference calls.  Returns the K1, K2, K3
-    and K4 launches of its gated runs."""
+    ``device`` runs the checkout's reference calls.  Returns the K1, K2,
+    K3, K4 and K5 launches of its gated runs."""
     import importlib
     import sys
     from pathlib import Path
@@ -2802,7 +3121,7 @@ def addon_phase(device, frames, track, surface, workdir, smi,
     last = len(poses) - 1
     # The checkout's references, before its package is set aside: the pin
     # phase's 8-pin drag and the surface phase's threads (timed in turns).
-    pins, escene = crossover.pin_scene(device, 8)
+    pins, escene = crossover.pin_scene(CPU, 8)
     pin_ref = crossover.pin_drag(pins, escene, 0, device).view_matrix.numpy()
     pin_view = escene.view_matrix.numpy().astype(np.float64)
     track_cv = spc.SceneTransformations(
@@ -2840,7 +3159,7 @@ def addon_phase(device, frames, track, surface, workdir, smi,
         import polychase_tpu_torch.polychase_core as pc
         from polychase_tpu_torch import native
         from polychase_tpu_torch.kernels import (
-            build, gftt_suppress, lk_iter, lk_prep, pnp_lm,
+            build, gftt_suppress, lk_iter, lk_prep, pnp_lm, raycast_sweep,
         )
 
         pkg = "polychase_tpu_torch.blender_addon"
@@ -2855,11 +3174,11 @@ def addon_phase(device, frames, track, surface, workdir, smi,
         ctx = bpy.context
 
         # The install: the zip's package, no JAX, the host library and the
-        # four kernels built from the zip's sources into the user cache.
+        # five kernels built from the zip's sources into the user cache.
         cache_root = Path(cache) / "polychase_tpu_torch"
         t0 = time.perf_counter()
         libs = build.load_all(ADDON_SOURCES)
-        for mod in (pnp_lm, lk_prep, lk_iter, gftt_suppress):
+        for mod in (pnp_lm, lk_prep, lk_iter, gftt_suppress, raycast_sweep):
             mod.load()
         build_s = time.perf_counter() - t0
         checks = {
@@ -2874,7 +3193,7 @@ def addon_phase(device, frames, track, surface, workdir, smi,
                 and build.build_root() != Path(extract).parent / "build",
             "the host library lies in the user cache":
                 native.library_path().parent == cache_root / "torch_native",
-            "K1-K4 lie in the user cache, built from the zip's csrc/":
+            "K1-K5 lie in the user cache, built from the zip's csrc/":
                 all(lib.path.parent == cache_root / "torch_kernels"
                     for lib in libs)
                 and str(build.CSRC).startswith(extract),
@@ -2993,7 +3312,7 @@ def addon_phase(device, frames, track, surface, workdir, smi,
             return cv_view(tracker.camera.matrix_world)
 
         # The gated runs, with the launch counts of the zip's wrappers.
-        kernels = (pnp_lm, lk_prep, lk_iter, gftt_suppress)
+        kernels = (pnp_lm, lk_prep, lk_iter, gftt_suppress, raycast_sweep)
         for mod in kernels:
             mod.launches = 0
         analyze_s = addon_analyze(os.path.join(workdir, "addon_analyze.db"))
@@ -3073,8 +3392,8 @@ def addon_phase(device, frames, track, surface, workdir, smi,
             fails.append(f"the add-on's pin drag differs from the pin "
                          f"phase's by {dpin:.3g}")
         want = (last, levels * solves, levels * solves,
-                n if analyze_k4(height, width) else 0)
-        print(f"  K1 / K2 / K3 / K4 launches through the add-on: "
+                n if analyze_k4(height, width) else 0, last)
+        print(f"  K1 / K2 / K3 / K4 / K5 launches through the add-on: "
               f"{' / '.join(map(str, launches))} (want "
               f"{' / '.join(map(str, want))})")
         if launches != want:
@@ -3109,7 +3428,7 @@ def main() -> None:
                          "on a GPU")
     from polychase_tpu_torch.backend import require_cuda
     from polychase_tpu_torch.kernels import (
-        build, gftt_suppress, lk_iter, lk_prep, pnp_lm,
+        build, gftt_suppress, lk_iter, lk_prep, pnp_lm, raycast_sweep,
     )
     from polychase_tpu_torch.synthetic import panning_clip
 
@@ -3120,8 +3439,8 @@ def main() -> None:
     print("build (one nvcc per source, in parallel):")
     t0 = time.perf_counter()
     libs = build.load_all(["pnp_lm.cu", "lk_prep.cu", "lk_iter.cu",
-                           "gftt_suppress.cu"])
-    for mod in (pnp_lm, lk_prep, lk_iter, gftt_suppress):
+                           "gftt_suppress.cu", "raycast_sweep.cu"])
+    for mod in (pnp_lm, lk_prep, lk_iter, gftt_suppress, raycast_sweep):
         mod.load()
     for lib in libs:
         print(f"  {lib.path.name}: nvcc {lib.build_seconds:.2f} s")
@@ -3150,6 +3469,8 @@ def main() -> None:
         refine_s, refine_iters, refine = refine_phase(device, workdir)
         print(f"refine {refine_s:.4f} s, {refine_iters} iterations, 250 "
               f"frames on {smi}")
+        print("K5 phase (the ray cast sweep vs plain torch, on the card):")
+        k5 = k5_phase(device, track, refine, smi)
         print("pin phase (find_transformation, config 2):")
         pin_ms, pin_launches, pin_err = pin_phase(device)
         print(f"pin drag {pin_ms:.4f} ms per 8-pin solve on {smi}")
@@ -3157,7 +3478,8 @@ def main() -> None:
         k1_surface, lk_surface, surface = surface_phase(
             device, frames, analyze_db, track, refine, workdir, smi)
         print("segments phase (track_segments and refine_segments):")
-        k1_segments, seg_err = segments_phase(device, track, refine, smi)
+        k1_segments, seg_err, k5_segments = segments_phase(device, track,
+                                                           refine, smi)
         print("sharded phase (analyze and refine split over devices):")
         lk_sharded = sharded_phase(device, frames, analyze_db, refine, smi)
         print("analyze-routes phase (GFTT device suppression, chained fan):")
@@ -3169,7 +3491,7 @@ def main() -> None:
     (k2_bound_ms, k2_by), (k3_bound_ms, k3_by) = lk_bounds
     k1_ms, k1_plain, _, _, (k1_bound_ms, k1_by) = times[
         "loss1_ftol1e-05_f0_pp0"]
-    # No single PyTorch call computes any of the four (library_ms null).
+    # No single PyTorch call computes any of the five (library_ms null).
     # ``launches`` counts the main path's runs (analyze; tracking and the pin
     # drags), ``surface_launches`` the surface phase's gated runs,
     # ``segments_launches`` the gated ``track_segments`` run,
@@ -3247,6 +3569,33 @@ def main() -> None:
         "plain_ms": routes["plain_ms"],
         "bound_ms": routes["bound"][0],
         "bound_by": routes["bound"][1],
+        "library_ms": None,
+    }, {
+        "name": "raycast_sweep",
+        "route": "cuda",
+        "source": "polychase_tpu_torch/csrc/raycast_sweep.cu",
+        # A kernel of the port alone: the JAX package runs this sweep as
+        # XLA (raycast_grouped's scan), not Pallas.
+        "replaces": "polychase_tpu/engine/raycast.py:153",
+        # One a frame step of the tracking phase's runs; refine_launches:
+        # one a prim refresh of the refine phase's timed run; cuda_launches:
+        # those the library counted for the main path's, one a call. ms,
+        # plain_ms and the bound: a recorded tracking frame (8192 rays,
+        # 20,224 triangles); refresh_*: config 4's recorded refresh.
+        "launches": track["k5_launches"],
+        "cuda_launches": track["k5_cuda_launches"],
+        "refine_launches": refine["k5_launches"],
+        "surface_launches": surface["k5_launches"],
+        "segments_launches": k5_segments,
+        "addon_launches": addon[4],
+        "max_abs_err": k5["max_abs_err"],
+        "ms": k5["ms"],
+        "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound"][0],
+        "bound_by": k5["bound"][1],
+        "refresh_ms": k5["refresh"][0],
+        "refresh_plain_ms": k5["refresh"][1],
+        "refresh_bound_ms": k5["refresh"][2][0],
         "library_ms": None,
     }]
     print(smi)

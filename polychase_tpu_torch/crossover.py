@@ -4,12 +4,13 @@ Usage, from the root of a checkout on a machine with a CUDA card:
 
     python3 -m polychase_tpu_torch.crossover
 
-1. Refine's prim refresh: the device sweep against the host BVH for
-   config 4's rays (250 frames × 128 keypoints of the 1920×1080, f = 1800
-   orbit clip) on UV spheres from 1,472 to ~400k triangles.  Each route is
-   timed as the LM driver calls it (rays, cast, prims back on the device,
-   the cost after it), host clock ending in a synchronise, median of 3
-   after a warm-up; the BVH's build, once per refine, is printed apart.
+1. Refine's prim refresh: the device sweep (K5 on the card) against the
+   host BVH for config 4's rays (250 frames × 128 keypoints of the
+   1920×1080, f = 1800 orbit clip) on UV spheres from 1,472 to ~2M
+   triangles.  Each route is timed as the LM driver calls it (rays, cast,
+   prims back on the device, the cost after it), host clock ending in a
+   synchronise, median of 3 after a warm-up, in turns (sweep, BVH, BVH,
+   sweep); the BVH's build, once per refine, is printed apart.
 2. Pin mode's ≥ 3-pin solve: the host route (float64 numpy) against the
    device route (``solve_pnp``, K1 on the card) at 3 to 16,384 points.
 
@@ -30,9 +31,9 @@ import torch
 
 PIN_COUNTS = (3, 4, 8, 64, 512, 4096, 16384)
 # (n_lat, n_lon) of the UV spheres: 1,472, 5,040, 10,780, 14,160, 20,224,
-# 130,560 and 399,000 triangles.
+# 130,560, 399,000, 1,258,200 and 1,998,000 triangles.
 SPHERES = ((24, 32), (36, 72), (50, 110), (60, 120), (80, 128), (256, 256),
-           (400, 500))
+           (400, 500), (700, 900), (1000, 1000))
 WIDTH, HEIGHT, FOCAL = 1920, 1080, 1800.0
 
 
@@ -110,8 +111,9 @@ def pin_route_table(device, counts=PIN_COUNTS, reps=5):
 
 def refresh_route_table(device, spheres=SPHERES, frames=250, keypoints=128,
                         reps=3):
-    """[(triangles, device ms, BVH ms, BVH build ms, prim agreement)] for
-    one prim refresh of config 4's rays."""
+    """[(triangles, device ms turns, BVH ms turns, BVH build ms, prim
+    agreement)] for one prim refresh of config 4's rays, the routes timed
+    in turns (sweep, BVH, BVH, sweep)."""
     from . import native
 
     from .engine import refiner as R
@@ -154,8 +156,11 @@ def refresh_route_table(device, spheres=SPHERES, frames=250, keypoints=128,
         t0 = time.perf_counter()
         bvh = R._make_prim_refresher(*args, routing=True)
         build_ms = (time.perf_counter() - t0) * 1e3
-        d_ms = _median_ms(lambda: sweep(params), device, reps)
-        b_ms = _median_ms(lambda: bvh(params), device, reps)
+        d_ms, b_ms = [], []
+        for route in ("sweep", "bvh", "bvh", "sweep"):
+            fn = sweep if route == "sweep" else bvh
+            (d_ms if route == "sweep" else b_ms).append(
+                _median_ms(lambda: fn(params), device, reps))
         agree = float((sweep(params)[0] == bvh(params)[0]).float().mean())
         rows.append((mesh.num_triangles, d_ms, b_ms, build_ms, agree))
     return rows
@@ -167,7 +172,7 @@ def main() -> None:
     import subprocess
 
     from .backend import require_cuda
-    from .kernels import pnp_lm
+    from .kernels import pnp_lm, raycast_sweep
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -177,10 +182,13 @@ def main() -> None:
     print(f"card: {smi}")
     device = require_cuda()
     pnp_lm.load()
-    print("prim refresh, config 4's 32,000 rays (ms per refresh):")
+    raycast_sweep.load()
+    print("prim refresh, config 4's 32,000 rays (ms per refresh; sweep, "
+          "BVH, BVH, sweep):")
     for tris, d_ms, b_ms, build_ms, agree in refresh_route_table(device):
-        print(f"  {tris:7d} triangles: device sweep {d_ms:.3f}, host BVH "
-              f"{b_ms:.3f} (build {build_ms:.3f}), prims equal {agree:.5f}")
+        print(f"  {tris:7d} triangles: device sweep {d_ms[0]:.3f}, host BVH "
+              f"{b_ms[0]:.3f}, {b_ms[1]:.3f}, device sweep {d_ms[1]:.3f} "
+              f"(BVH build {build_ms:.3f}), prims equal {agree:.5f}")
     print("pin drag, >= 3 pins (ms per drag):")
     for n, h_ms, d_ms in pin_route_table(device):
         print(f"  {n:6d} points: host {h_ms:.4f}, device {d_ms:.4f}")

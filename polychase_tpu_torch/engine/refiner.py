@@ -90,12 +90,16 @@ _INVALID = -1
 _log = logging.getLogger(__name__)
 
 # Triangle count from which the prim refresh casts through the host BVH
-# instead of the device sweep.  For config 4's 32,000 rays on an NVIDIA
-# H100 80GB HBM3 at 700 W the plain torch sweep won at 5,040 triangles
-# (20.5-20.8 ms per refresh against 33.8-34.8) and the single-threaded
-# host BVH from 10,780 (33.6-35.7 ms against 42.5-42.7); the two cross
-# near 8.7k (PERF.md, section 6).
-BVH_TRIANGLE_THRESHOLD = 8192
+# instead of the device sweep (K5 on a card).  For config 4's
+# 32,000 rays on an NVIDIA H100 80GB HBM3 at 700.00 W, in turns, the sweep
+# won up to 1,258,200 triangles (59.4-59.6 ms per refresh against the
+# single-threaded host BVH's 69.5-72.3; 4.2-6.5 ms against 24.6-36.1 from
+# 1,472 to 20,224) and the BVH at 1,998,000 (85.1-85.5 ms against
+# 93.4-93.6); the two cross near 1.7M, the BVH's build (0.54-0.85 s there,
+# once a refine) not counted (``crossover.py``; PERF.md, section 6).  A
+# mesh on the CPU, which only a caller that asks for the CPU gives, takes
+# the same threshold; its own crossover is not measured.
+BVH_TRIANGLE_THRESHOLD = 1_600_000
 
 
 class RefineTrajectoryUpdate(NamedTuple):

@@ -74,7 +74,8 @@ def build_flow_db(db_path: str, mesh: Mesh, focal: float, width: int,
                   kp_per_frame: int, noise_px: float) -> None:
     """Write keypoints and skip-fan flows of the clip into ``db_path``.
 
-    ``mesh`` lives on the device that runs the ray cast."""
+    ``mesh`` lives on the device that runs the ray cast, one frame's rays
+    a cast."""
     n = len(poses)
     fx = fy = float(focal)
     cx, cy = width / 2.0, height / 2.0
@@ -90,12 +91,13 @@ def build_flow_db(db_path: str, mesh: Mesh, focal: float, width: int,
     )
     dirs = np.stack([d_cam[i] @ Rs[i] for i in range(n)]).astype(np.float32)
     dev = mesh.vertices.device
-    hits = raycast_grouped(
-        mesh, torch.as_tensor(origins, device=dev),
-        torch.as_tensor(dirs, device=dev), True,
-    )
-    valid = hits.valid.cpu().numpy()
-    pos = hits.pos.cpu().numpy().astype(np.float64)
+    hits = [raycast_grouped(mesh, torch.as_tensor(origins[i:i + 1],
+                                                  device=dev),
+                            torch.as_tensor(dirs[i:i + 1], device=dev), True)
+            for i in range(n)]
+    valid = np.concatenate([h.valid.cpu().numpy() for h in hits])
+    pos = np.concatenate([h.pos.cpu().numpy() for h in hits]).astype(
+        np.float64)
 
     db = Database(db_path)
     try:

@@ -1,12 +1,13 @@
-"""K1 (csrc/pnp_lm.cu), K2 (csrc/lk_prep.cu), K3 (csrc/lk_iter.cu) and K4
-(csrc/gftt_suppress.cu) against their plain torch versions on a CUDA card,
-GFTT's device route against its host route and the chained skip fan's K2
-and K3 launches (on one card and split by features), refine and pin mode
-on the card against the same work on the CPU, the segment-parallel track
-(one K1 launch a step for every segment), the sharded analyze and refine
-(two shards on one card, or every card), the three kernels on a card other
-than the current one, and the ``polychase_core`` threads with no device
-argument on the card.
+"""K1 (csrc/pnp_lm.cu), K2 (csrc/lk_prep.cu), K3 (csrc/lk_iter.cu), K4
+(csrc/gftt_suppress.cu) and K5 (csrc/raycast_sweep.cu) against their plain
+torch versions on a CUDA card, GFTT's device route against its host route
+and the chained skip fan's K2 and K3 launches (on one card and split by
+features), refine and pin mode on the card against the same work on the
+CPU, the segment-parallel track (one K1 and one K5 launch a step for every
+segment), the sharded analyze and refine (two shards on one card, or every
+card), K1-K3 and K5 on a card other than the current one, K5's failures
+raising, and the ``polychase_core`` threads with no device argument on the
+card.
 
 These tests need the card and skip elsewhere.  The file imports no jax, so
 it runs on a machine without it:
@@ -484,18 +485,22 @@ def _segment_clip(dev, tmp_path, n=18):
 
 
 def test_track_segments_launches_k1_once_a_step(card, tmp_path):
-    """Three segments of 6 frames: 5 steps, so 5 launches of K1 (not 15),
-    the counts equal to the plain route's on the CPU and every pose within
-    5e-3 of the truth on both."""
+    """Three segments of 6 frames: 5 steps, so 5 launches of K1 and of K5
+    (not 15), the counts equal to the plain route's on the CPU and every
+    pose within 5e-3 of the truth on both."""
+    from polychase_tpu_torch.kernels import raycast_sweep
+
     pc, db, mesh, poses, trajs = _segment_clip(card, tmp_path)
     bounds = ((0, 5), (6, 11), (12, 17))
     on_card, on_cpu = trajs(bounds, False), trajs(bounds, False)
-    before = pnp_lm.launches
+    before = (pnp_lm.launches, raycast_sweep.launches)
     counts = pc.track_segments(db, on_card, np.eye(4), mesh)
-    assert pnp_lm.launches == before + 5
+    assert (pnp_lm.launches, raycast_sweep.launches) == (before[0] + 5,
+                                                         before[1] + 5)
     cpu_counts = pc.track_segments(db, on_cpu, np.eye(4), mesh,
                                    device="cpu")
-    assert pnp_lm.launches == before + 5
+    assert (pnp_lm.launches, raycast_sweep.launches) == (before[0] + 5,
+                                                         before[1] + 5)
     np.testing.assert_array_equal(counts, cpu_counts)
     assert counts.shape == (3, 5) and (counts >= 3).all()
     for traj in on_card + on_cpu:
@@ -1021,3 +1026,147 @@ def test_chained_split_matches_one_card(lk_case, monkeypatch):
     both = split[1]
     np.testing.assert_allclose(split[0][both], one[0][both], rtol=0,
                                atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K5 (the ray cast sweep)
+# ---------------------------------------------------------------------------
+
+
+def _k5_scene(card, kind, G, K, sphere=(24, 32), seed=0):
+    """A UV sphere (every triangle twice for ``duplicated``, 40 masked for
+    ``masked``) on the card and G groups of K rays from distance 4 aimed
+    around it (away from it for ``miss``)."""
+    from polychase_tpu_torch.engine.geometry import (
+        Mesh, mask_array_size, set_mask_bits,
+    )
+    from polychase_tpu_torch.synthetic import uv_sphere
+
+    rng = np.random.default_rng(seed)
+    verts, tris = uv_sphere(*sphere)
+    words = None
+    if kind == "duplicated":
+        tris = np.concatenate([tris, tris])
+    if kind == "masked":
+        words = np.zeros(mask_array_size(len(tris)), np.uint32)
+        for i in rng.choice(len(tris), 40, replace=False):
+            words = set_mask_bits(words, int(i), "mask")
+    ang = rng.uniform(0, 2 * np.pi, G)
+    o = np.stack([4 * np.sin(ang), rng.uniform(-0.5, 0.5, G),
+                  -4 * np.cos(ang)], -1).astype(np.float32)
+    d = rng.normal(size=(G, K, 3)) * 0.7 - o[:, None]
+    if kind == "miss":
+        d = -d
+    mesh = Mesh.create(verts, tris, words, device=card)
+    return (mesh, torch.as_tensor(o, device=card),
+            torch.as_tensor(d.astype(np.float32), device=card))
+
+
+def _k5_inputs(mesh, o, d):
+    p1, p2, p3 = mesh.triangle_corners()
+    return o, d, p1, p2 - p1, p3 - p1
+
+
+K5_CASES = [("plain", 250, 128, (24, 32)), ("masked", 250, 128, (24, 32)),
+            ("duplicated", 16, 128, (24, 32)), ("plain", 4, 2048, (80, 128)),
+            ("plain", 2000, 1, (24, 32)), ("plain", 7, 333, (36, 72)),
+            ("miss", 8, 100, (24, 32))]
+
+
+@pytest.mark.parametrize("kind,G,K,sphere", K5_CASES)
+def test_raycast_sweep_matches_plain(card, kind, G, K, sphere):
+    """K5 against ``sweep_plain`` on the card: the ids equal and t to the
+    bit (the kernel rounds as the plain version's torch ops do on the
+    card), one launch a call, counted by the wrapper and by the library."""
+    from polychase_tpu_torch.engine import raycast as R
+    from polychase_tpu_torch.kernels import raycast_sweep as RS
+
+    args = _k5_inputs(*_k5_scene(card, kind, G, K, sphere))
+    before = (RS.launches, RS.cuda_launches())
+    t, ids = RS.raycast_sweep(*args)
+    assert (RS.launches, RS.cuda_launches()) == tuple(b + 1 for b in before)
+    ref_t, ref_id = R.sweep_plain(*args)
+    torch.testing.assert_close(ids, ref_id, rtol=0, atol=0)
+    torch.testing.assert_close(t, ref_t, rtol=1e-6, atol=0)
+    hit = ids != R.INVALID_ID
+    if kind == "miss":
+        assert not hit.any() and torch.isinf(t).all()
+    else:
+        assert hit.float().mean() > 0.3
+    if kind == "duplicated":
+        assert (ids[hit] < args[2].shape[0] // 2).all()
+
+
+def test_raycast_grouped_launches_k5(card, monkeypatch):
+    """``raycast_grouped`` on the card's tensors launches K5 once, and its
+    hits (masked triangles dropped) equal the same cast through the plain
+    sweep on the card."""
+    from polychase_tpu_torch.engine import raycast as R
+    from polychase_tpu_torch.kernels import raycast_sweep as RS
+
+    mesh, o, d = _k5_scene(card, "masked", 250, 128)
+    before = RS.launches
+    got = R.raycast_grouped(mesh, o, d)
+    assert RS.launches == before + 1
+    monkeypatch.setattr(RS, "raycast_sweep",
+                        lambda *a, **kw: R.sweep_plain(*a[:6]))
+    want = R.raycast_grouped(mesh, o, d)
+    assert RS.launches == before + 1
+    for f in ("prim_id", "valid"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f in ("pos", "barycentric", "t"):
+        torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_raycast_sweep_launches_on_its_tensors_card(card):
+    """K5 on card 1's tensors, launched while card 0 is current, equals the
+    same call on card 0 to the bit."""
+    from polychase_tpu_torch.kernels import raycast_sweep as RS
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    args = _k5_inputs(*_k5_scene(c0, "plain", 16, 128))
+    with torch.cuda.device(0):
+        before = RS.launches
+        ref = RS.raycast_sweep(*args)
+        got = RS.raycast_sweep(*(a.to(c1) for a in args))
+        assert RS.launches == before + 2
+        torch.cuda.synchronize(c1)
+    for a, b in zip(got, ref):
+        assert a.device == c1
+        torch.testing.assert_close(a.cpu(), b.cpu(), rtol=0, atol=0)
+
+
+def test_raycast_sweep_failures_raise(card, monkeypatch):
+    """No fallback to the plain sweep: a failed build raises from
+    ``raycast_grouped``, a launch the runtime refuses (16 threads a block)
+    raises with no launch counted, and inputs the kernel does not take
+    raise ValueError."""
+    from polychase_tpu_torch.engine import raycast as R
+    from polychase_tpu_torch.kernels import build
+    from polychase_tpu_torch.kernels import raycast_sweep as RS
+
+    mesh, o, d = _k5_scene(card, "plain", 4, 64)
+    args = _k5_inputs(mesh, o, d)
+    before = (RS.launches, RS.cuda_launches())
+    with monkeypatch.context() as m:
+        m.setattr(RS, "launch_plan", lambda *a: RS.Plan(16, 4, 1))
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            RS.raycast_sweep(*args)
+    assert (RS.launches, RS.cuda_launches()) == before
+    with pytest.raises(ValueError):
+        RS.raycast_sweep(o, d.transpose(0, 1), *args[2:])
+    with pytest.raises(ValueError):
+        RS.raycast_sweep(o, d.double(), *args[2:])
+    with pytest.raises(ValueError):
+        RS.raycast_sweep(o, d.cpu(), *args[2:])
+
+    def broken(*a, **kw):
+        raise RuntimeError("nvcc failed on raycast_sweep.cu")
+
+    monkeypatch.setattr(build, "load", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        R.raycast_grouped(mesh, o, d)
+    assert RS.launches == before[0]

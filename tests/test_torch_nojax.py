@@ -1,6 +1,7 @@
-"""The port runs with jax and the JAX package unimportable: a tiny track, a
-tiny analyze, a tiny refine followed by a pin drag, the tracker and
-optical-flow threads of its ``polychase_core``, the segment-parallel
+"""The port runs with jax and the JAX package unimportable: a tiny track
+(with K5's wrapper, ``kernels.raycast_sweep``, imported), a tiny analyze, a
+tiny refine followed by a pin drag, the tracker and optical-flow threads of
+its ``polychase_core``, the segment-parallel
 track and refine (the refine through ``RefineSegmentsThread``) with the
 sharded modules and a refine split over two CPU devices, analyze's GFTT
 device suppression route and its chained skip fan (on one device and split
@@ -56,10 +57,12 @@ SCRIPT = REFUSE_JAX + textwrap.dedent(
     from polychase_tpu_torch.engine.geometry import Mesh, SceneTransformations
     from polychase_tpu_torch.engine.pose import quat_to_mat_np
     from polychase_tpu_torch.engine.tracker import track_sequence
+    from polychase_tpu_torch.kernels import raycast_sweep
     from polychase_tpu_torch.synthetic import (
         build_flow_db, orbit_poses, uv_sphere,
     )
 
+    assert callable(raycast_sweep.raycast_sweep)
     dev = torch.device("cpu")
     verts, tris = uv_sphere(12, 16)
     mesh = Mesh.create(verts, tris, device=dev)

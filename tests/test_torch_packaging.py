@@ -1,5 +1,5 @@
 """The port's release artifacts: the wheel (the host library's source, the
-four CUDA sources, the polychase_core stub, py.typed and the port's console
+five CUDA sources, the polychase_core stub, py.typed and the port's console
 scripts), the wheel installed outside a checkout building its host library
 into the user's cache with jax refused, the add-on zip (the manifest at the
 root, the whole port, nothing of ``polychase_tpu``, a shim that registers
@@ -19,7 +19,8 @@ import pytest
 from test_torch_nojax import REFUSE_JAX
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CUDA_SOURCES = ["pnp_lm.cu", "lk_prep.cu", "lk_iter.cu", "gftt_suppress.cu"]
+CUDA_SOURCES = ["pnp_lm.cu", "lk_prep.cu", "lk_iter.cu", "gftt_suppress.cu",
+                "raycast_sweep.cu"]
 SCRIPTS = {
     "polychase-torch-generate-database":
         "polychase_tpu_torch.cli.generate_database:main",
