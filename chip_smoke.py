@@ -9,8 +9,9 @@ Usage, from the root of a checkout on a machine with a CUDA card:
 2. Builds the five kernels with nvcc, one process per source, in
    parallel: K1 the whole-solve LM PnP (csrc/pnp_lm.cu), K2 the LK prep
    (csrc/lk_prep.cu), K3 the LK iteration (csrc/lk_iter.cu), K4 GFTT's
-   min-distance suppression (csrc/gftt_suppress.cu), K5 the closest-hit
-   sweep of ``raycast_grouped`` (csrc/raycast_sweep.cu).
+   min-distance suppression (csrc/gftt_suppress.cu), K5 the whole
+   ``raycast_grouped`` cast, its closest-hit sweep and its hits
+   (csrc/raycast_sweep.cu).
 3. K1 phase: the kernel against its plain torch version on the card,
    over every loss × function_tol × (opt_f, opt_pp), points behind the
    camera, all points masked, N = 16384 and a batch of 8 solves, and over
@@ -42,7 +43,7 @@ Usage, from the root of a checkout on a machine with a CUDA card:
 6. Tracking phase: a synthetic 1920×1080, f = 1800, 120-frame orbit clip
    over a 20,224-triangle sphere with 2048 keypoints per frame and 0.3 px
    flow noise, written to a flow DB (its keypoints cast on a CPU copy of
-   the mesh, by the plain sweep, so that the truth does not pass through
+   the mesh, by the plain route, so that the truth does not pass through
    K5), tracked through ``track_sequence`` forward over 119 frames,
    backward over 60, and over 24 frames with free focal length and
    principal point.  Checks that every frame step launched K1 and K5 once
@@ -61,25 +62,28 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    refresh ray cast, the normal equations, the solve and the cost, and the
    device busy share; K5 launched once per prim refresh of the timed run
    (the device route, below ``refiner.BVH_TRIANGLE_THRESHOLD``).  The
-   clip's DB is cast by the plain sweep on the card, as before K5, not by
+   clip's DB is cast by the plain route on the card, as before K5, not by
    K5.  One normal system of the problem (P = 2250, nb = 32, bs = 72) is
    solved by the banded and the dense solve, timed, and the two steps
    held within 1e-3 of each other.
-8. K5 phase: K5 against its plain version (``engine.raycast.sweep_plain``)
-   on the card, on seven scenes: a tracking frame's sweep inputs recorded
-   from the tracking phase (8192 rays, 20,224 triangles), config 4's prim
-   refresh recorded from the refine phase (250 × 128 rays, 1,472
-   triangles), those rays on the sphere with 40 triangles masked (the
-   whole ``raycast_grouped`` also held against its cast through the plain
-   sweep), on the sphere with every triangle twice (the id must be the
-   lower copy's), and as 32,000 groups of one ray (the sharded flat cast's
-   shape), 7 groups of 333 rays over 5,040 triangles (neither a multiple
-   of the block or the tile), and the tracking frame's rays turned around
-   (no hit).  Ids equal on every ray, but where both triangles are hit with
-   t within 1e-6 relative (a tie on an edge or a vertex: such rays are
-   counted); t within 1e-6 relative on equal ids.  Prints per scene both
-   times, the bound and its share, and the launches.  Then forward
-   tracking frames/s with K5 and with the plain sweep, in turns, and a
+8. K5 phase: K5, the whole ``raycast_grouped`` cast in one launch, against
+   its plain route (``engine.raycast.cast_plain``: ``sweep_plain``, then
+   ``hits_plain``) on the card, on nine scenes: a tracking frame's cast
+   inputs recorded from the tracking phase (8192 rays, 20,224 triangles),
+   config 4's prim refresh recorded from the refine phase (250 × 128 rays,
+   1,472 triangles), those rays on the sphere with 40 triangles masked, on
+   the sphere with every triangle twice (the id must be the lower copy's),
+   and as 32,000 groups of one ray (the sharded flat cast's shape, packed
+   128 a block), 7 groups of 333 rays over 5,040 triangles (neither a
+   multiple of the block or the tile), the tracking frame's rays
+   turned around (no hit), and its first 48 rays a group on the tracking
+   mesh with 40 triangles masked, with the mask checked and not (K of 32
+   to 64: 2 rays a thread).  Ids, t and valid equal to the bit on every
+   ray; positions, normals and barycentrics within 1e-6 relative, the rays
+   equal to the bit counted.  Prints per scene both times, the bound and
+   its share, the launch plan and the launches; then the device kernels
+   of one tracking frame's ``raycast_grouped`` (K5 alone), forward
+   tracking frames/s with K5 and with the plain route, in turns, and a
    profiled K5 run's busy share and device time by kernel.
 9. Pin phase (config 2, ``run_all.py:219-265``): 20 timed 8-pin Camera-type
    drags and one drag of 16,384 surface points (the pins cast on a CPU copy
@@ -192,7 +196,9 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     phases) and apart in the refine, surface, segments, sharded, routes and
     add-on phases, for K4 and K5 also their CUDA launches (one a call), for
     K4 the rounds of the main path's frames, both neighbour reads' times
-    and its floor, for K5 config 4's refresh times, largest difference)
+    and its floor, for K5 config 4's refresh times, the groups of one
+    ray's, the frame's launch plan, registers and spills, and its cast's
+    device kernels, largest difference)
     and, last, ``{"ok": true, ...}``.
 
 Any failed check raises, so the script exits non-zero without the last line.
@@ -1046,23 +1052,23 @@ def main_path_phase(device, workdir, *, n_frames=N_FRAMES,
     # sweep's inputs: K1 and K5 are then held against their plain versions
     # on the very tensors the main path hands them.
     inputs, sweeps = [], []
-    real, real_sweep = tracker.solve_arrays_lm, raycast_sweep.raycast_sweep
+    real, real_sweep = tracker.solve_arrays_lm, raycast_sweep.raycast_hits
 
     def record(*args, **kw):
         inputs.append((args, kw))
         return real(*args, **kw)
 
     def record_sweep(*args, **kw):
-        sweeps.append(args[:5])
+        sweeps.append(args[:6])
         return real_sweep(*args, **kw)
 
     tracker.solve_arrays_lm = record
-    raycast_sweep.raycast_sweep = record_sweep
+    raycast_sweep.raycast_hits = record_sweep
     try:
         run(db_path, 0, 8)
     finally:
         tracker.solve_arrays_lm = real
-        raycast_sweep.raycast_sweep = real_sweep
+        raycast_sweep.raycast_hits = real_sweep
     path_err, _ = main_path_inputs_check(inputs)
 
     pnp_lm.launches = raycast_sweep.launches = 0
@@ -1239,13 +1245,13 @@ def refine_inputs(device, workdir, *, n_frames=REFINE_FRAMES,
         return noisy_trajectory(poses, intr, rng, REFINE_T_SIGMA)
 
     db_path = os.path.join(workdir, "refine.db")
-    # Cast by the plain sweep on the card, as before K5, not by K5.  Cast
+    # Cast by the plain route on the card, as before K5, not by K5.  Cast
     # on the host, its hits round differently in their last bits, which
     # moves refine_segments from the sequential refines past
     # REFINE_SEQ_ATOL: the two paths' LM decisions part where a refresh
     # moves a prim or at a tolerance stop (``python3 -m
     # polychase_tpu_torch.segments_compare``; PERF.md, section 7).
-    with plain_sweep():
+    with plain_route():
         build_flow_db(db_path, mesh, FOCAL, WIDTH, HEIGHT, poses, rng,
                       keypoints, NOISE_PX)
     return dict(db=db_path, verts=verts, tris=tris, poses=poses,
@@ -1280,17 +1286,17 @@ def refine_phase(device, workdir, **size):
     if R._refresh_routing(mesh):
         raise AssertionError("config 4's mesh took the host BVH route")
     sweeps = []
-    real_sweep, real_refresh = raycast_sweep.raycast_sweep, R.refresh_prims
+    real_sweep, real_refresh = raycast_sweep.raycast_hits, R.refresh_prims
 
     def record_sweep(*args, **kw):
-        sweeps.append(args[:5])
+        sweeps.append(args[:6])
         return real_sweep(*args, **kw)
 
-    raycast_sweep.raycast_sweep = record_sweep
+    raycast_sweep.raycast_hits = record_sweep
     try:
         warm = run(noisy())
     finally:
-        raycast_sweep.raycast_sweep = real_sweep
+        raycast_sweep.raycast_hits = real_sweep
     traj = noisy()
     band = band_solve_check(device, db_path, traj, mesh)
 
@@ -1350,125 +1356,176 @@ def refine_phase(device, workdir, **size):
 
 
 @contextlib.contextmanager
-def plain_sweep():
-    """``raycast_grouped`` through the plain sweep (``sweep_plain``) on
-    every device for the block, K5 set aside."""
-    from polychase_tpu_torch.engine.raycast import sweep_plain
+def plain_route():
+    """``raycast_grouped`` through its plain route (``cast_plain``:
+    ``sweep_plain``, then ``hits_plain``) on every device for the block,
+    K5 set aside."""
+    from polychase_tpu_torch.engine.raycast import cast_plain
     from polychase_tpu_torch.kernels import raycast_sweep
 
-    real = raycast_sweep.raycast_sweep
-    raycast_sweep.raycast_sweep = lambda *a, **kw: sweep_plain(*a[:6])
+    real = raycast_sweep.raycast_hits
+    raycast_sweep.raycast_hits = cast_plain
     try:
         yield
     finally:
-        raycast_sweep.raycast_sweep = real
+        raycast_sweep.raycast_hits = real
 
 
-# K5 against its plain version: t on equal ids, and the two t's of a ray
-# whose ids differ (a tie on an edge or a vertex), relative.
-K5_T_RTOL = 1e-6
-# f32 operations of K5 (csrc/raycast_sweep.cu), counted from its source: a
-# (ray, triangle) pair's three dot products (9 products, 6 sums), 4 sign
-# selects, u + v and 5 compares; a (group, triangle) pair's o - v0 (3), B
-# and Cq (9 each: a product and an FMA a component) and sdet (5); a
-# triangle's A (9).  The divisions, one a pair that passes the test (a few
-# a ray), are left out: under 1e-4 of the count.
-K5_OPS_PAIR, K5_OPS_GROUP_TRI, K5_OPS_TRI = 25, 26, 9
+# K5 against its plain route: ids, t and valid to the bit; positions,
+# normals and barycentrics within this, relative (to the bit where K5
+# copies torch's rounding, which it counts).
+K5_FIELD_RTOL = 1e-6
+# f32 operations of the cast, the work its inputs need in K5's layout for
+# them.  Grouped (K of 32 or more): a (ray, triangle) pair's three dot
+# products (9 products, 6 sums), u + v and 4 compares; a (group, triangle)
+# pair's o - v0 (3), B and Cq (9 each: a product and an FMA a component),
+# sdet (5) and the sign fold (2 compares, 9 multiplies by the sign, |sdet|).
+# Packed (K under 32, each ray its own group's constants, folded a pair):
+# the pair's 15, 4 sign flips, u + v and 5 compares; the (group, triangle)
+# pair's 26.  Both: a triangle's edges (6) and A (9); a ray's hit: its edges
+# and o - q1 (9), three cross products (27), three sums of products (15),
+# the reciprocal and two products, the blend (17), the normal (9 + 6 + 4)
+# and the tests (4).  The sweep's divisions, one a pair that passes the
+# test (a few a ray), are left out: under 1e-4 of the count.
+K5_OPS_PAIR, K5_OPS_GROUP_TRI = 20, 38
+K5_OPS_PACKED_PAIR, K5_OPS_PACKED_GROUP_TRI = 25, 26
+K5_OPS_TRI, K5_OPS_RAY = 15, 94
 # Rays of the refresh scenes as groups of one (the sharded flat cast).
 K5_FLAT = 32_000
+HIT_FIELDS = ("pos", "normal", "barycentric", "t", "prim_id", "valid")
 
 
-def k5_bound(G, K, T):
-    """K5 on G groups of K rays over T triangles: the triangles (v0, e1,
-    e2), the origins and the directions read once, t (f32) and the id
-    (int64) written once; every pair's, (group, triangle)'s and triangle's
-    operations."""
-    nbytes = T * 36 + G * 12 + G * K * 12 + G * K * 12
-    ops = (G * K * T * K5_OPS_PAIR + G * T * K5_OPS_GROUP_TRI
-           + T * K5_OPS_TRI)
+def k5_bound(args):
+    """K5 on ``args`` (origins, dirs, vertices, triangles, mask words, the
+    mask flag): every input read once, the hits (pos, normal 12 bytes,
+    barycentric 8, t 4, id 8, valid 1) written once; every pair's, (group,
+    triangle)'s, triangle's and ray's operations, in the layout K5 takes
+    for these groups."""
+    from polychase_tpu_torch.kernels.raycast_sweep import PACKED_BELOW
+
+    o, d, verts, tris, words = args[:5]
+    G, K = d.shape[:2]
+    T, V, W = tris.shape[0], verts.shape[0], words.shape[0]
+    nbytes = V * 12 + T * 24 + W * 8 + G * 12 + G * K * (12 + 45)
+    pair, group_tri = ((K5_OPS_PACKED_PAIR, K5_OPS_PACKED_GROUP_TRI)
+                       if K < PACKED_BELOW else
+                       (K5_OPS_PAIR, K5_OPS_GROUP_TRI))
+    ops = (G * K * T * pair + G * T * group_tri + T * K5_OPS_TRI
+           + G * K * K5_OPS_RAY)
     return bound_ms(nbytes, ops)
 
 
-def k5_pair_t(args, g, k, j):
-    """The plain sweep's t of ray (g, k) on triangle j alone (infinite
-    where it does not hit it)."""
-    from polychase_tpu_torch.engine.raycast import sweep_plain
-
-    o, d, p1, e1, e2 = args
-    tri = [a[j:j + 1] for a in (p1, e1, e2)]
-    return float(sweep_plain(o[g:g + 1], d[g:g + 1, k:k + 1], *tri)[0])
+def k5_registers(log, plan):
+    """Registers and spill bytes of the kernel ``plan`` launches, from
+    K5's ``nvcc -Xptxas -v`` log."""
+    name = f"hits_kernelILi{plan.rays_per_thread}ELb{int(plan.packed)}E"
+    found, regs, spills = False, None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            found = name in line
+        elif found and "spill stores" in line:
+            spills = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif found and "Used" in line and "registers" in line:
+            regs = int(line.split("Used")[1].split("registers")[0])
+            found = False
+    return regs, spills
 
 
 def k5_check(label, args, plain_reps=3):
-    """K5 against ``sweep_plain`` on ``args`` (origins, dirs, p1, e1, e2)
-    on the card; prints both times, the bound, its share and the launch
-    count.  Returns (failures, max |dt| on equal ids, kernel ms, plain ms,
-    (bound ms, what bounds it))."""
-    from polychase_tpu_torch.engine.raycast import INVALID_ID, sweep_plain
+    """K5 against the plain route (``cast_plain``) on ``args`` (origins,
+    dirs, vertices, triangles, mask words, the mask flag) on the card;
+    prints both times, the bound, its share and the launch count.  Returns
+    (failures, max |difference| over the float fields, kernel ms, plain ms,
+    (bound ms, what bounds it), the plan)."""
+    from polychase_tpu_torch.engine.raycast import cast_plain
     from polychase_tpu_torch.kernels import raycast_sweep
 
-    o, d, p1, e1, e2 = args
+    o, d, verts, tris = args[:4]
     G, K = d.shape[:2]
-    T = p1.shape[0]
+    T = tris.shape[0]
     before = (raycast_sweep.launches, raycast_sweep.cuda_launches())
-    t, ids = raycast_sweep.raycast_sweep(*args)
+    got = raycast_sweep.raycast_hits(*args)
     launched = (raycast_sweep.launches - before[0],
                 raycast_sweep.cuda_launches() - before[1])
-    ref_t, ref_id = sweep_plain(*args)
+    want = cast_plain(*args)
     torch.cuda.synchronize()
     fails = []
     if launched != (1, 1):
         fails.append(f"{label}: K5 launched {launched}, want one call and "
                      f"one CUDA launch")
-    ties = 0
-    for g, k in torch.nonzero(ids != ref_id).tolist():
-        a, b = int(ids[g, k]), int(ref_id[g, k])
-        if INVALID_ID in (a, b):
-            fails.append(f"{label}: ray ({g}, {k}) hit {a} by K5, {b} plain")
-            continue
-        ta, tb = k5_pair_t(args, g, k, a), k5_pair_t(args, g, k, b)
-        if not abs(ta - tb) <= K5_T_RTOL * abs(tb):
-            fails.append(f"{label}: ray ({g}, {k}) hit {a} at t {ta!r} by "
-                         f"K5, {b} at t {tb!r} plain")
-        ties += 1
-    same = ids == ref_id
-    hit = same & (ref_id != INVALID_ID)
-    dt = (t - ref_t).abs()
-    max_dt = float(dt[hit].max()) if bool(hit.any()) else 0.0
-    rel = float((dt[hit] / ref_t[hit].abs()).max()) if bool(hit.any()) \
-        else 0.0
-    miss = same & (ref_id == INVALID_ID)
-    if rel > K5_T_RTOL or not bool(torch.isinf(t[miss]).all()):
-        fails.append(f"{label}: t differs by {rel:.3g} (relative) on equal "
-                     f"ids")
-    equal_t = int(((t == ref_t) & same).sum())
-    ms = event_ms(lambda: raycast_sweep.raycast_sweep(*args), 20)
-    plain = event_ms(lambda: sweep_plain(*args), plain_reps)
-    bound = k5_bound(G, K, T)
+    for f in ("prim_id", "t", "valid"):
+        a, b = getattr(got, f), getattr(want, f)
+        if not torch.equal(a, b):
+            fails.append(f"{label}: {f} differs from the plain route's on "
+                         f"{int((a != b).sum())} of {G * K} rays")
+    max_err, bits = 0.0, []
+    for f in ("pos", "normal", "barycentric"):
+        a, b = getattr(got, f), getattr(want, f)
+        diff = (a - b).abs()
+        rel = float((diff / b.abs().clamp_min(1e-30)).max())
+        max_err = max(max_err, float(diff.max()))
+        same = int(torch.eq(a, b).all(dim=-1).sum())
+        bits.append(f"{f} {same}")
+        if rel > K5_FIELD_RTOL:
+            fails.append(f"{label}: {f} differs by {rel:.3g} (relative)")
+    hits = int(want.valid.sum())
+    ms = event_ms(lambda: raycast_sweep.raycast_hits(*args), 20)
+    plain = event_ms(lambda: cast_plain(*args), plain_reps)
+    bound = k5_bound(args)
     plan = raycast_sweep.launch_plan(G, K, T,
                                      raycast_sweep._sm_count(o.device))
-    print(f"  {label} (G {G}, K {K}, T {T}; {plan}): ids equal on "
-          f"{int(same.sum())} of {G * K} rays ({ties} ties), "
-          f"{int(hit.sum())} hits, t equal to the bit on {equal_t}, max "
-          f"|dt| {max_dt:.3g} ({rel:.3g} relative); K5 {ms:.4f} ms, plain "
-          f"{plain:.4f} ms; bound {bound[0]:.6f} ms ({bound[1]}), "
-          f"{bound[0] / ms:.4f} of it; launches {launched[0]} "
-          f"(CUDA {launched[1]})")
-    return fails, max_dt, ms, plain, bound
+    print(f"  {label} (G {G}, K {K}, T {T}; {plan}): ids, t and valid equal "
+          f"to the plain route's on {G * K} rays: "
+          f"{not any('differs from' in x for x in fails)}, {hits} hits; "
+          f"to the bit on rays: {', '.join(bits)}; max |diff| "
+          f"{max_err:.3g}; K5 {ms:.4f} ms, plain {plain:.4f} ms; bound "
+          f"{bound[0]:.6f} ms ({bound[1]}), {bound[0] / ms:.4f} of it; "
+          f"launches {launched[0]} (CUDA {launched[1]})")
+    return fails, max_err, ms, plain, bound, plan
+
+
+QUEUED = ("cudaLaunch", "cudaMemcpy", "cudaMemset")
+
+
+def device_work(fn):
+    """What ``fn`` queued on the device, under ``torch.profiler``: the CUDA
+    runtime's kernel launches, copies and fills (its API calls, which the
+    profiler records as they are made) and the device's kernels, copies and
+    fills as (name, ms) (which it may miss in a window this short).  ``fn`` runs
+    once under a first profiler, which is thrown away, so that the
+    profiler's own set-up falls outside the window read.  Returns (queued,
+    ran, what the second call of ``fn`` returned)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+    host = {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    events = list(prof.profiler.kineto_results.events())
+    queued = [e.name() for e in events
+              if e.device_type() == torch.autograd.DeviceType.CPU
+              and e.name().startswith(QUEUED)]
+    ran = [(e.name(), (e.end_ns() - e.start_ns()) / 1e6) for e in events
+           if e.device_type() == torch.autograd.DeviceType.CUDA
+           and e.name() not in host]
+    return queued, ran, out
 
 
 def k5_tracking_turns(device, track, smi):
     """Forward tracking over the tracking clip with K5 and with the plain
-    sweep on the card, in turns (K5, plain, plain, K5), then one K5 run
+    route on the card, in turns (K5, plain, plain, K5), then one K5 run
     under ``torch.profiler``: its busy share and the device time of its
     largest kernels by name."""
     run, db = track["run"], track["db"]
     n = len(track["poses"]) - 1
     turns = []
     for how in ("K5", "plain", "plain", "K5"):
-        with plain_sweep() if how == "plain" else contextlib.nullcontext():
+        with plain_route() if how == "plain" else contextlib.nullcontext():
             turns.append((how, n / run(db, 0, n)[1]))
-    print(f"  forward tracking ({n} frames; K5, plain sweep, in turns): "
+    print(f"  forward tracking ({n} frames; K5, plain route, in turns): "
           + ", ".join(f"{how} {fps:.4f}" for how, fps in turns)
           + f" frames/s on {smi}")
     wall, _, busy_ms, busy, kernels = profile_split(
@@ -1480,10 +1537,11 @@ def k5_tracking_turns(device, track, smi):
 
 
 def k5_phase(device, track, refine, smi):
-    """K5 against its plain version on the seven scenes of the module
-    docstring (item 8), and tracking with K5 against the plain sweep.
-    Returns the largest |dt| on equal ids, the tracking frame's times and
-    bound, and config 4's refresh times."""
+    """K5 against its plain route on the nine scenes of the module
+    docstring (item 8), the kernels of one tracking frame's cast, and
+    tracking with K5 against the plain route.  Returns the largest
+    difference, each scene's (ms, plain ms, bound, plan) and the frame's
+    kernel count."""
     from polychase_tpu_torch.engine import raycast as R
     from polychase_tpu_torch.engine.geometry import (
         Mesh, mask_array_size, set_mask_bits,
@@ -1491,9 +1549,8 @@ def k5_phase(device, track, refine, smi):
     from polychase_tpu_torch.kernels import raycast_sweep
     from polychase_tpu_torch.synthetic import uv_sphere
 
-    def tris_of(mesh):
-        p1, p2, p3 = mesh.triangle_corners()
-        return p1, p2 - p1, p3 - p1
+    def arrays(mesh):
+        return mesh.vertices, mesh.triangles, mesh.masked_triangles, True
 
     frame = track["sweep"]
     o, d = refine["sweep"][:2]
@@ -1508,6 +1565,14 @@ def k5_phase(device, track, refine, smi):
     n_flat = min(K5_FLAT, d.shape[0] * d.shape[1])
     flat_o = o[:, None, :].expand(d.shape).reshape(-1, 3)[:n_flat]
     flat_d = d.reshape(-1, 1, 3)[:n_flat]
+    # The tracking mesh with 40 triangles masked, for a frame of 48 rays a
+    # group (K of 32 to 64 takes 2 rays a thread).
+    twords = np.zeros(mask_array_size(len(track["tris"])), np.uint32)
+    for i in rng.choice(len(track["tris"]), 40, replace=False):
+        twords = set_mask_bits(twords, int(i), "mask")
+    tmasked = Mesh.create(track["verts"], track["tris"], twords,
+                          device=device)
+    k48 = (frame[0], frame[1][:, :48].contiguous(), *arrays(tmasked)[:3])
     ragged = Mesh.create(*uv_sphere(36, 72), device=device)
     ang = rng.uniform(0, 2 * np.pi, 7)
     ro = np.stack([4 * np.sin(ang), rng.uniform(-0.5, 0.5, 7),
@@ -1517,52 +1582,47 @@ def k5_phase(device, track, refine, smi):
     scenes = [
         ("tracking frame", frame),
         ("config 4 refresh", refine["sweep"]),
-        ("40 triangles masked", (o, d, *tris_of(masked))),
-        ("every triangle twice", (o, d, *tris_of(twice))),
+        ("40 triangles masked", (o, d, *arrays(masked))),
+        ("every triangle twice", (o, d, *arrays(twice))),
         ("groups of one ray", (flat_o.contiguous(), flat_d.contiguous(),
                                *refine["sweep"][2:])),
         ("K 333, T 5,040", (torch.as_tensor(ro, device=device),
                             torch.as_tensor(rd, device=device),
-                            *tris_of(ragged))),
+                            *arrays(ragged))),
         ("no hit", (frame[0], (-frame[1]).contiguous(), *frame[2:])),
+        ("K 48, 40 masked", (*k48, True)),
+        ("K 48, mask off", (*k48, False)),
     ]
-    fails, max_dt, results = [], 0.0, {}
+    fails, max_err, results = [], 0.0, {}
     for label, args in scenes:
-        f, dt, ms, plain, bound = k5_check(label, args)
+        f, err, ms, plain, bound, plan = k5_check(label, args)
         fails += f
-        max_dt = max(max_dt, dt)
-        results[label] = (ms, plain, bound)
+        max_err = max(max_err, err)
+        results[label] = (ms, plain, bound, plan)
 
     # Every hit on the doubled mesh is its lower copy's.
-    ids2 = raycast_sweep.raycast_sweep(*scenes[3][1])[1]
-    hit2 = ids2 != R.INVALID_ID
-    if not bool((ids2[hit2] < len(rtris)).all()):
+    hits2 = raycast_sweep.raycast_hits(*scenes[3][1])
+    if not bool((hits2.prim_id[hits2.valid] < len(rtris)).all()):
         fails.append("a hit on the doubled mesh is the upper copy's")
     # No ray of the turned-around frame hits.
-    if bool((raycast_sweep.raycast_sweep(*scenes[6][1])[1]
-             != R.INVALID_ID).any()):
+    if bool(raycast_sweep.raycast_hits(*scenes[6][1]).valid.any()):
         fails.append("a turned-around ray hit the mesh")
-    # The whole cast on the masked mesh against its cast through the plain
-    # sweep: masked closest hits dropped alike.
-    got = R.raycast_grouped(masked, o, d)
-    with plain_sweep():
-        want = R.raycast_grouped(masked, o, d)
-    dpos = float((got.pos - want.pos).abs().max())
-    print(f"  raycast_grouped on the masked mesh: valid equal "
-          f"{bool(torch.equal(got.valid, want.valid))}, prim ids equal "
-          f"{bool(torch.equal(got.prim_id, want.prim_id))}, "
-          f"{int(want.valid.sum())} valid of {want.valid.numel()}, largest "
-          f"position difference {dpos:.3g}")
-    if not (torch.equal(got.valid, want.valid)
-            and torch.equal(got.prim_id, want.prim_id)) or dpos > 1e-5:
-        fails.append("raycast_grouped through K5 differs from its cast "
-                     "through the plain sweep on the masked mesh")
+    # One tracking frame's whole cast, as the tracker calls it: one kernel.
+    mesh = Mesh.create(track["verts"], track["tris"], device=device)
+    queued, ran, _ = device_work(lambda: R.raycast_grouped(mesh,
+                                                           *frame[:2]))
+    print(f"  a tracking frame's raycast_grouped: {len(queued)} launch(es), "
+          f"copies and fills queued ({', '.join(queued)}); the device ran "
+          f"{', '.join(f'{n[:60]} {ms:.4f} ms' for n, ms in ran) or 'none the profiler saw'}")
+    if (len(queued) != 1 or not queued[0].startswith("cudaLaunchKernelEx")
+            or any("hits_kernel" not in n for n, _ in ran)):
+        fails.append(f"a tracking frame's cast queued {queued} and ran "
+                     f"{ran}, want K5 alone")
     if fails:
         raise AssertionError("K5:\n" + "\n".join(fails))
     k5_tracking_turns(device, track, smi)
-    ms, plain, bound = results["tracking frame"]
-    return dict(max_abs_err=max_dt, ms=ms, plain_ms=plain, bound=bound,
-                refresh=results["config 4 refresh"])
+    return dict(max_abs_err=max_err, scenes=results,
+                frame_step_kernels=len(queued))
 
 
 # ---------------------------------------------------------------------------
@@ -3422,6 +3482,7 @@ def addon_phase(device, frames, track, surface, workdir, smi,
 
 
 def main() -> None:
+    started = time.perf_counter()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
@@ -3445,7 +3506,8 @@ def main() -> None:
     for lib in libs:
         print(f"  {lib.path.name}: nvcc {lib.build_seconds:.2f} s")
         for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or ("entry function" in line and lib is libs[4])):
                 print(f"    {line.strip()}")
     print(f"  all built and loaded in {time.perf_counter() - t0:.2f} s")
 
@@ -3491,6 +3553,11 @@ def main() -> None:
     (k2_bound_ms, k2_by), (k3_bound_ms, k3_by) = lk_bounds
     k1_ms, k1_plain, _, _, (k1_bound_ms, k1_by) = times[
         "loss1_ftol1e-05_f0_pp0"]
+    frame_ms, frame_plain, frame_bound, frame_plan = k5["scenes"][
+        "tracking frame"]
+    refresh, flat = (k5["scenes"][k] for k in ("config 4 refresh",
+                                              "groups of one ray"))
+    k5_regs, k5_spills = k5_registers(libs[4].build_log, frame_plan)
     # No single PyTorch call computes any of the five (library_ms null).
     # ``launches`` counts the main path's runs (analyze; tracking and the pin
     # drags), ``surface_launches`` the surface phase's gated runs,
@@ -3581,7 +3648,12 @@ def main() -> None:
         # one a prim refresh of the refine phase's timed run; cuda_launches:
         # those the library counted for the main path's, one a call. ms,
         # plain_ms and the bound: a recorded tracking frame (8192 rays,
-        # 20,224 triangles); refresh_*: config 4's recorded refresh.
+        # 20,224 triangles), its whole cast in one launch, the plain route
+        # its sweep and hits in torch; refresh_*: config 4's recorded
+        # refresh; flat_*: its rays as 32,000 groups of one.
+        # rays_per_thread, cluster and registers: the frame's launch;
+        # frame_step_kernels: the device kernels of one tracking frame's
+        # raycast_grouped.
         "launches": track["k5_launches"],
         "cuda_launches": track["k5_cuda_launches"],
         "refine_launches": refine["k5_launches"],
@@ -3589,15 +3661,25 @@ def main() -> None:
         "segments_launches": k5_segments,
         "addon_launches": addon[4],
         "max_abs_err": k5["max_abs_err"],
-        "ms": k5["ms"],
-        "plain_ms": k5["plain_ms"],
-        "bound_ms": k5["bound"][0],
-        "bound_by": k5["bound"][1],
-        "refresh_ms": k5["refresh"][0],
-        "refresh_plain_ms": k5["refresh"][1],
-        "refresh_bound_ms": k5["refresh"][2][0],
+        "ms": frame_ms,
+        "plain_ms": frame_plain,
+        "bound_ms": frame_bound[0],
+        "bound_by": frame_bound[1],
+        "refresh_ms": refresh[0],
+        "refresh_plain_ms": refresh[1],
+        "refresh_bound_ms": refresh[2][0],
+        "flat_ms": flat[0],
+        "flat_plain_ms": flat[1],
+        "flat_bound_ms": flat[2][0],
+        "rays_per_thread": frame_plan.rays_per_thread,
+        "cluster": frame_plan.cluster,
+        "registers": k5_regs,
+        "spill_bytes": k5_spills,
+        "frame_step_kernels": k5["frame_step_kernels"],
         "library_ms": None,
     }]
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - started:.1f} s, the build included")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -40,6 +40,14 @@ def mask_array_size(num_triangles: int) -> int:
     return n + (4 - n % 4) % 4
 
 
+def triangle_masked(words: torch.Tensor,
+                    tri_idx: torch.Tensor) -> torch.Tensor:
+    """Vectorized bit test of triangle ids (int64 tensor) in the packed
+    mask ``words``."""
+    elem = words[tri_idx // 32]
+    return ((elem >> (tri_idx % 32)) & 1) != 0
+
+
 @dataclass
 class Mesh:
     """Triangle mesh + packed triangle mask bits.
@@ -96,8 +104,7 @@ class Mesh:
 
     def is_triangle_masked(self, tri_idx: torch.Tensor) -> torch.Tensor:
         """Vectorized bit test of triangle ids (int64 tensor)."""
-        elem = self.masked_triangles[tri_idx // 32]
-        return ((elem >> (tri_idx % 32)) & 1) != 0
+        return triangle_masked(self.masked_triangles, tri_idx)
 
     def to_numpy_mask(self) -> np.ndarray:
         """The mask words in the reference's ``uint32`` layout."""

@@ -5,9 +5,10 @@ Port of ``polychase_tpu/engine/raycast.py``: ``raycast_grouped`` (one shared
 origin per group of rays, the hot shape), the general ``raycast`` (N rays
 with their own origins), the screen-point → ray helpers, and
 ``intersect_ray_plane_jac`` / ``intersect_ray_triangle``.  On the TPU these
-are XLA, not Pallas.  Here all are plain torch but the closest-hit sweep of
-``raycast_grouped``, which on a card is K5, a kernel of the port
-(``kernels/raycast_sweep.py``); its plain version is :func:`sweep_plain`.
+are XLA, not Pallas.  Here all are plain torch but ``raycast_grouped``,
+which on a card is one launch of K5, a kernel of the port
+(``kernels/raycast_sweep.py``); its plain version is :func:`cast_plain`
+(:func:`sweep_plain`, then :func:`hits_plain`).
 
 Mask semantics match the reference: the closest hit is found over all
 triangles and then dropped if that triangle is masked (masked triangles
@@ -22,7 +23,7 @@ from dataclasses import dataclass
 import torch
 
 from . import camera
-from .geometry import Mesh, SceneTransformations
+from .geometry import Mesh, SceneTransformations, triangle_masked
 from .pose import cross
 
 INVALID_ID = 0xFFFFFFFF
@@ -57,13 +58,14 @@ def _moller_trumbore(origin, direction, p1, p2, p3):
     return t, u, v, inside
 
 
-def _unmasked(mesh: Mesh, best_id: torch.Tensor,
+def _unmasked(words: torch.Tensor, best_id: torch.Tensor,
               check_mask: bool) -> torch.Tensor:
-    """Rays with a closest hit, less those whose triangle is masked."""
+    """Rays with a closest hit, less those whose triangle is masked in the
+    mask ``words``."""
     valid = best_id != INVALID_ID
     if check_mask:
-        masked = mesh.is_triangle_masked(
-            torch.where(valid, best_id, torch.zeros_like(best_id))
+        masked = triangle_masked(
+            words, torch.where(valid, best_id, torch.zeros_like(best_id))
         )
         valid = valid & ~masked
     return valid
@@ -127,7 +129,7 @@ def raycast(mesh: Mesh, origins: torch.Tensor, dirs: torch.Tensor,
         best_id = torch.where(closer, base + j, best_id)
         best_t = torch.where(closer, tj, best_t)
 
-    valid = _unmasked(mesh, best_id, check_mask)
+    valid = _unmasked(mesh.masked_triangles, best_id, check_mask)
     safe_id = torch.where(valid, best_id, torch.zeros_like(best_id))
     return _ray_hits(p1[safe_id], p2[safe_id], p3[safe_id], best_uv, best_t,
                      best_id, valid)
@@ -217,43 +219,24 @@ def sweep_plain(origins: torch.Tensor, dirs: torch.Tensor, p1: torch.Tensor,
     return best_t, best_id
 
 
-def raycast_grouped(mesh: Mesh, origins: torch.Tensor, dirs: torch.Tensor,
-                    check_mask: bool = True, chunk: int = 0) -> RayHits:
-    """Closest-hit cast of G groups of K rays, one shared origin per group.
+def hits_plain(origins: torch.Tensor, dirs: torch.Tensor, p1: torch.Tensor,
+               p2: torch.Tensor, p3: torch.Tensor, words: torch.Tensor,
+               best_t: torch.Tensor, best_id: torch.Tensor,
+               check_mask: bool = True) -> RayHits:
+    """The hits of :func:`raycast_grouped` after its sweep, in plain torch:
+    the plain version of K5's epilogue (``kernels/raycast_sweep.py``).
 
-    ``origins`` (G, 3), ``dirs`` (G, K, 3).  With a shared origin every
-    Möller–Trumbore triple product factors into per-triangle constants
-    contracted with the direction:
-
-        det   = d · (e2 × e1)
-        u·det = d · (e2 × (o − v0))
-        v·det = d · ((o − v0) × e1)
-        t·det =      e2 · ((o − v0) × e1)
-
-    The sweep carries only (best t, best id): :func:`sweep_plain` for CPU
-    tensors, K5 (``kernels/raycast_sweep.py``) on a card, where ``chunk``
-    (the plain version's memory knob) is not used.  The hit test is sign
-    arithmetic on the undivided determinants, and the winner's barycentrics
-    are recomputed once per ray afterwards.  Ties go to the lowest
-    triangle id.
-    """
-    from ..kernels.raycast_sweep import raycast_sweep
-
-    origins = origins.to(torch.float32).reshape(-1, 3).contiguous()
-    G = origins.shape[0]
-    dirs = dirs.to(torch.float32).reshape(G, -1, 3).contiguous()
-    p1, p2, p3 = mesh.triangle_corners()
-    best_t, best_id = raycast_sweep(origins, dirs, p1, p2 - p1, p3 - p1,
-                                    chunk)
-
-    valid = _unmasked(mesh, best_id, check_mask)
+    ``origins`` (G, 3), ``dirs`` (G, K, 3), the triangles' corners ``p1``,
+    ``p2``, ``p3`` (T, 3), the mask ``words`` and the sweep's ``best_t``,
+    ``best_id`` (G, K).  A closest hit on a masked triangle is dropped
+    (masked triangles still occlude).  The winner's barycentrics are
+    recomputed once per ray; this can round differently from the sweep, so
+    a grazing hit whose |det| falls to eps here is folded into ``valid``:
+    no valid hit carries non-finite barycentrics into the PnP solve."""
+    valid = _unmasked(words, best_id, check_mask)
     safe_id = torch.where(valid, best_id, torch.zeros_like(best_id))
     q1, q2, q3 = p1[safe_id], p2[safe_id], p3[safe_id]
 
-    # The winner's barycentrics, recomputed per ray.  This can round
-    # differently from the sweep, so a grazing hit whose |det| falls to
-    # eps here is folded into ``valid``: no valid hit carries non-finite
-    # barycentrics into the PnP solve.
     be1, be2 = q2 - q1, q3 - q1
     bomv = origins[:, None, :] - q1
     bB = cross(be2, bomv)
@@ -268,6 +251,51 @@ def raycast_grouped(mesh: Mesh, origins: torch.Tensor, dirs: torch.Tensor,
     uv = torch.stack([torch.sum(dirs * bB, dim=-1) * binv,
                       torch.sum(dirs * bCq, dim=-1) * binv], dim=-1)
     return _ray_hits(q1, q2, q3, uv, best_t, best_id, valid)
+
+
+def cast_plain(origins: torch.Tensor, dirs: torch.Tensor,
+               vertices: torch.Tensor, triangles: torch.Tensor,
+               words: torch.Tensor, check_mask: bool = True,
+               chunk: int = 0) -> RayHits:
+    """:func:`raycast_grouped` in plain torch, the plain version of K5:
+    the triangles' corners gathered, :func:`sweep_plain`, then
+    :func:`hits_plain`.  ``vertices`` (V, 3), ``triangles`` (T, 3) and
+    ``words`` are a :class:`Mesh`'s arrays."""
+    p1 = vertices[triangles[:, 0]]
+    p2 = vertices[triangles[:, 1]]
+    p3 = vertices[triangles[:, 2]]
+    best_t, best_id = sweep_plain(origins, dirs, p1, p2 - p1, p3 - p1, chunk)
+    return hits_plain(origins, dirs, p1, p2, p3, words, best_t, best_id,
+                      check_mask)
+
+
+def raycast_grouped(mesh: Mesh, origins: torch.Tensor, dirs: torch.Tensor,
+                    check_mask: bool = True, chunk: int = 0) -> RayHits:
+    """Closest-hit cast of G groups of K rays, one shared origin per group.
+
+    ``origins`` (G, 3), ``dirs`` (G, K, 3).  With a shared origin every
+    Möller–Trumbore triple product factors into per-triangle constants
+    contracted with the direction:
+
+        det   = d · (e2 × e1)
+        u·det = d · (e2 × (o − v0))
+        v·det = d · ((o − v0) × e1)
+        t·det =      e2 · ((o − v0) × e1)
+
+    The sweep carries only (best t, best id); the hit test is sign
+    arithmetic on the undivided determinants, and the winner's barycentrics
+    are recomputed once per ray afterwards.  Ties go to the lowest
+    triangle id.  CPU tensors take :func:`cast_plain`; on a card the whole
+    cast is one launch of K5 (``kernels/raycast_sweep.py``), where
+    ``chunk`` (the plain version's memory knob) is not used.
+    """
+    from ..kernels.raycast_sweep import raycast_hits
+
+    origins = origins.to(torch.float32).reshape(-1, 3).contiguous()
+    G = origins.shape[0]
+    dirs = dirs.to(torch.float32).reshape(G, -1, 3).contiguous()
+    return raycast_hits(origins, dirs, mesh.vertices, mesh.triangles,
+                        mesh.masked_triangles, check_mask, chunk)
 
 
 def get_ray_object_space(scene: SceneTransformations, pos: torch.Tensor):

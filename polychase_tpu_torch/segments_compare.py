@@ -96,7 +96,7 @@ def main() -> None:
         mesh = Mesh.create(verts, tris, device=device)
         poses = orbit_poses(cs.REFINE_FRAMES)
         path = os.path.join(workdir, f"refine-{seed}-{cast}.db")
-        with cs.plain_sweep():
+        with cs.plain_route():
             build_flow_db(path, mesh if cast == "card" else
                           Mesh.create(verts, tris, device="cpu"), cs.FOCAL,
                           cs.WIDTH, cs.HEIGHT, poses, rng,

@@ -15,6 +15,10 @@ it runs on a machine without it:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import importlib.util
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1063,60 +1067,98 @@ def _k5_scene(card, kind, G, K, sphere=(24, 32), seed=0):
 
 
 def _k5_inputs(mesh, o, d):
-    p1, p2, p3 = mesh.triangle_corners()
-    return o, d, p1, p2 - p1, p3 - p1
+    return o, d, mesh.vertices, mesh.triangles, mesh.masked_triangles
 
 
 K5_CASES = [("plain", 250, 128, (24, 32)), ("masked", 250, 128, (24, 32)),
             ("duplicated", 16, 128, (24, 32)), ("plain", 4, 2048, (80, 128)),
             ("plain", 2000, 1, (24, 32)), ("plain", 7, 333, (36, 72)),
-            ("miss", 8, 100, (24, 32))]
+            ("miss", 8, 100, (24, 32)), ("masked", 3000, 1, (36, 72)),
+            ("masked", 50, 7, (24, 32)), ("plain", 9, 7, (36, 72)),
+            ("plain", 4, 48, (80, 128)), ("masked", 20, 48, (24, 32))]
+
+
+def _same_hits(got, want):
+    """Ids, t and ``valid`` to the bit; positions, normals and barycentrics
+    within 1e-6 relative (to the bit where K5 copies torch's rounding)."""
+    for f in ("prim_id", "t", "valid"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f in ("pos", "normal", "barycentric"):
+        torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                   rtol=1e-6, atol=0)
+
+
+def _device_work(fn):
+    """``chip_smoke.device_work`` on ``fn``: the CUDA runtime's launches,
+    copies and fills it queued, the device's kernels it ran (which the
+    profiler may miss in a window this short), and what it returned."""
+    smoke = sys.modules.get("chip_smoke")
+    if smoke is None:
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", Path(__file__).resolve().parents[1] /
+            "chip_smoke.py")
+        smoke = importlib.util.module_from_spec(spec)
+        sys.modules["chip_smoke"] = smoke
+        spec.loader.exec_module(smoke)
+    return smoke.device_work(fn)
 
 
 @pytest.mark.parametrize("kind,G,K,sphere", K5_CASES)
 def test_raycast_sweep_matches_plain(card, kind, G, K, sphere):
-    """K5 against ``sweep_plain`` on the card: the ids equal and t to the
-    bit (the kernel rounds as the plain version's torch ops do on the
-    card), one launch a call, counted by the wrapper and by the library."""
+    """K5 against the plain route (``cast_plain``: ``sweep_plain``, then
+    ``hits_plain``) on the card, with and without the mask: every field of
+    the hits (ids, t and ``valid`` to the bit), one launch a call, counted
+    by the wrapper and by the library."""
     from polychase_tpu_torch.engine import raycast as R
     from polychase_tpu_torch.kernels import raycast_sweep as RS
 
     args = _k5_inputs(*_k5_scene(card, kind, G, K, sphere))
-    before = (RS.launches, RS.cuda_launches())
-    t, ids = RS.raycast_sweep(*args)
-    assert (RS.launches, RS.cuda_launches()) == tuple(b + 1 for b in before)
-    ref_t, ref_id = R.sweep_plain(*args)
-    torch.testing.assert_close(ids, ref_id, rtol=0, atol=0)
-    torch.testing.assert_close(t, ref_t, rtol=1e-6, atol=0)
-    hit = ids != R.INVALID_ID
+    for check_mask in (True, False):
+        before = (RS.launches, RS.cuda_launches())
+        got = RS.raycast_hits(*args, check_mask)
+        assert (RS.launches, RS.cuda_launches()) == tuple(
+            b + 1 for b in before)
+        want = R.cast_plain(*args, check_mask)
+        _same_hits(got, want)
+    hit = got.valid
     if kind == "miss":
-        assert not hit.any() and torch.isinf(t).all()
+        assert not hit.any() and torch.isinf(got.t).all()
     else:
         assert hit.float().mean() > 0.3
     if kind == "duplicated":
-        assert (ids[hit] < args[2].shape[0] // 2).all()
+        assert (got.prim_id[hit] < args[3].shape[0] // 2).all()
+    if kind == "masked" and G * K >= 3000:
+        # Some closest hits lie on masked triangles: dropped by the mask.
+        masked = RS.raycast_hits(*args, True).valid
+        assert bool((hit & ~masked).any())
 
 
-def test_raycast_grouped_launches_k5(card, monkeypatch):
-    """``raycast_grouped`` on the card's tensors launches K5 once, and its
-    hits (masked triangles dropped) equal the same cast through the plain
-    sweep on the card."""
+def test_raycast_grouped_launches_k5(card):
+    """``raycast_grouped`` on the card's tensors is one launch of K5 and no
+    other kernel (counted by ``torch.profiler``); its hits equal the plain
+    route's on the card, and the plain route equals, to the bit, the
+    arithmetic of ``raycast_grouped`` before the route was split out (so a
+    cast through it, such as config 4's refine truth, keeps its bits)."""
     from polychase_tpu_torch.engine import raycast as R
     from polychase_tpu_torch.kernels import raycast_sweep as RS
 
+    from raycast_before import raycast_grouped_before
+
     mesh, o, d = _k5_scene(card, "masked", 250, 128)
-    before = RS.launches
-    got = R.raycast_grouped(mesh, o, d)
-    assert RS.launches == before + 1
-    monkeypatch.setattr(RS, "raycast_sweep",
-                        lambda *a, **kw: R.sweep_plain(*a[:6]))
-    want = R.raycast_grouped(mesh, o, d)
-    assert RS.launches == before + 1
-    for f in ("prim_id", "valid"):
-        assert torch.equal(getattr(got, f), getattr(want, f)), f
-    for f in ("pos", "barycentric", "t"):
-        torch.testing.assert_close(getattr(got, f), getattr(want, f),
-                                   rtol=1e-6, atol=1e-6)
+    R.raycast_grouped(mesh, o, d)  # builds and loads the library
+    torch.cuda.synchronize()
+    before = (RS.launches, RS.cuda_launches())
+    queued, ran, got = _device_work(lambda: R.raycast_grouped(mesh, o, d))
+    assert (RS.launches, RS.cuda_launches()) == tuple(b + 2 for b in before)
+    assert len(queued) == 1 and queued[0].startswith(
+        "cudaLaunchKernelEx"), queued
+    assert all("hits_kernel" in n for n, _ in ran), ran
+    want = R.cast_plain(*_k5_inputs(mesh, o, d))
+    assert RS.launches == before[0] + 2
+    _same_hits(got, want)
+    old = raycast_grouped_before(mesh, o, d)
+    for f in ("pos", "normal", "barycentric", "t", "prim_id", "valid"):
+        assert torch.equal(getattr(want, f), getattr(old, f)), f
 
 
 def test_raycast_sweep_launches_on_its_tensors_card(card):
@@ -1130,19 +1172,20 @@ def test_raycast_sweep_launches_on_its_tensors_card(card):
     args = _k5_inputs(*_k5_scene(c0, "plain", 16, 128))
     with torch.cuda.device(0):
         before = RS.launches
-        ref = RS.raycast_sweep(*args)
-        got = RS.raycast_sweep(*(a.to(c1) for a in args))
+        ref = RS.raycast_hits(*args)
+        got = RS.raycast_hits(*(a.to(c1) for a in args))
         assert RS.launches == before + 2
         torch.cuda.synchronize(c1)
-    for a, b in zip(got, ref):
+    for f in ("pos", "normal", "barycentric", "t", "prim_id", "valid"):
+        a, b = getattr(got, f), getattr(ref, f)
         assert a.device == c1
         torch.testing.assert_close(a.cpu(), b.cpu(), rtol=0, atol=0)
 
 
 def test_raycast_sweep_failures_raise(card, monkeypatch):
-    """No fallback to the plain sweep: a failed build raises from
-    ``raycast_grouped``, a launch the runtime refuses (16 threads a block)
-    raises with no launch counted, and inputs the kernel does not take
+    """No fallback to the plain route: a failed build raises from
+    ``raycast_grouped``, a plan the library refuses (3 rays a thread, or
+    the packed layout at 2) raises with no launch counted, and inputs the kernel does not take
     raise ValueError."""
     from polychase_tpu_torch.engine import raycast as R
     from polychase_tpu_torch.kernels import build
@@ -1151,17 +1194,24 @@ def test_raycast_sweep_failures_raise(card, monkeypatch):
     mesh, o, d = _k5_scene(card, "plain", 4, 64)
     args = _k5_inputs(mesh, o, d)
     before = (RS.launches, RS.cuda_launches())
-    with monkeypatch.context() as m:
-        m.setattr(RS, "launch_plan", lambda *a: RS.Plan(16, 4, 1))
-        with pytest.raises(RuntimeError, match="CUDA error"):
-            RS.raycast_sweep(*args)
+    # 3 rays a thread, and the packed layout at 2 (which launch_plan never
+    # gives), have no kernel.
+    for plan in (RS.Plan(3, False, 1, 1), RS.Plan(2, True, 4, 1)):
+        with monkeypatch.context() as m:
+            m.setattr(RS, "launch_plan", lambda *a, plan=plan: plan)
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                RS.raycast_hits(*args)
     assert (RS.launches, RS.cuda_launches()) == before
     with pytest.raises(ValueError):
-        RS.raycast_sweep(o, d.transpose(0, 1), *args[2:])
+        RS.raycast_hits(o, d.transpose(0, 1), *args[2:])
     with pytest.raises(ValueError):
-        RS.raycast_sweep(o, d.double(), *args[2:])
+        RS.raycast_hits(o, d.double(), *args[2:])
     with pytest.raises(ValueError):
-        RS.raycast_sweep(o, d.cpu(), *args[2:])
+        RS.raycast_hits(o, d.cpu(), *args[2:])
+    with pytest.raises(ValueError):
+        RS.raycast_hits(o, d, args[2], args[3].int(), args[4])
+    with pytest.raises(ValueError):
+        RS.raycast_hits(o, d, args[2].cpu(), *args[3:])
 
     def broken(*a, **kw):
         raise RuntimeError("nvcc failed on raycast_sweep.cu")

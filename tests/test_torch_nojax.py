@@ -62,7 +62,7 @@ SCRIPT = REFUSE_JAX + textwrap.dedent(
         build_flow_db, orbit_poses, uv_sphere,
     )
 
-    assert callable(raycast_sweep.raycast_sweep)
+    assert callable(raycast_sweep.raycast_hits)
     dev = torch.device("cpu")
     verts, tris = uv_sphere(12, 16)
     mesh = Mesh.create(verts, tris, device=dev)

@@ -1,5 +1,6 @@
-"""The closest-hit sweep of ``raycast_grouped``: the plain version of K5
-(``engine.raycast.sweep_plain``) and the dispatch in front of it, on the CPU.
+"""``raycast_grouped``'s plain route, the plain version of K5
+(``engine.raycast.cast_plain``: ``sweep_plain``, then ``hits_plain``), and
+the wrapper in front of it, on the CPU.
 
 - ``sweep_plain`` against the JAX package's ``raycast_grouped`` (XLA on the
   CPU, without the mask) on tests/test_torch_raycast.py's plain, masked and
@@ -7,13 +8,19 @@
   triangles in six chunks, the last one padded): ids equal on every ray,
   t within rtol 1e-5 where both hit (the two packages' cross products and
   sums round differently).
+- ``hits_plain`` after ``sweep_plain`` against every field of the JAX
+  ``raycast_grouped``, with and without the mask: ids and valid equal,
+  positions, normals and barycentrics within 1e-5, t within rtol 1e-5.
 - Its own invariants, to the bit: ties go to the lowest id (every triangle
   duplicated), the chunk does not change an id or a t, nor does casting
   each ray as a group of one (the sharded flat cast's shape).
-- ``raycast_grouped`` against a copy of its arithmetic before the sweep was
-  factored out, every field to the bit.
-- The dispatch: CPU tensors never load the kernel library; anything else
-  that is not a card raises; ``launch_plan``'s blocks and splits.
+- ``raycast_grouped`` against a frozen copy of its arithmetic before the
+  sweep and the hits were factored out (``tests/raycast_before.py``),
+  every field to the bit.
+- The wrapper: CPU tensors never load the kernel library; anything else
+  that is not a card raises; inputs the kernel does not take raise
+  before any route; ``launch_plan``'s rays a thread, packing, blocks and
+  clusters.
 """
 
 import jax.numpy as jnp
@@ -25,9 +32,9 @@ from polychase_tpu.engine.raycast import raycast_grouped as jax_cast
 
 from polychase_tpu_torch import convert
 from polychase_tpu_torch.engine import raycast as R
-from polychase_tpu_torch.engine.pose import cross
 from polychase_tpu_torch.kernels import build, raycast_sweep as RS
 
+from raycast_before import raycast_grouped_before
 from test_torch_raycast import _mesh, _rays
 
 torch.set_num_threads(1)
@@ -102,91 +109,63 @@ def test_groups_of_one_ray(rng):
     assert torch.equal(t.reshape(G, K), ref_t)
 
 
-def _raycast_grouped_before(mesh, origins, dirs, check_mask=True, chunk=0):
-    """``raycast_grouped`` as it was before its sweep became
-    ``sweep_plain``, with its chunk rule of 32M-element temporaries."""
-    origins = origins.to(torch.float32).reshape(-1, 3)
-    G = origins.shape[0]
-    dirs = dirs.to(torch.float32).reshape(G, -1, 3)
-    K = dirs.shape[1]
+def _hits(jm, origins, dirs, check_mask=True, chunk=0):
+    mesh = convert.mesh(jm, device="cpu")
+    o, d = torch.as_tensor(origins), torch.as_tensor(dirs)
     p1, p2, p3 = mesh.triangle_corners()
-    num_tris = p1.shape[0]
-    if chunk <= 0:
-        chunk = max(64, min(4096, (1 << 25) // max(G * K, 1)))
-        chunk = max(64, (chunk // 64) * 64)
-        if num_tris < chunk:
-            cover = 64
-            while cover < num_tris:
-                cover *= 2
-            chunk = cover
-    pad = (-num_tris) % chunk
-    if pad:
-        z = torch.zeros((pad, 3), dtype=p1.dtype)
-        p1, p2, p3 = (torch.cat([p, z]) for p in (p1, p2, p3))
-    e1_all, e2_all = p2 - p1, p3 - p1
-    best_t = torch.full((G, K), torch.inf, dtype=torch.float32)
-    best_id = torch.full((G, K), R.INVALID_ID, dtype=torch.int64)
-    d0, d1, d2 = dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3]
-    lane = torch.arange(chunk, dtype=torch.int64)
-    for base in range(0, num_tris + pad, chunk):
-        v0 = p1[base:base + chunk]
-        e1 = e1_all[base:base + chunk]
-        e2 = e2_all[base:base + chunk]
-        A = cross(e2, e1)
-        omv = origins[:, None, :] - v0[None]
-        B = cross(e2[None], omv)
-        Cq = cross(omv, e1[None])
-        sdet = torch.sum(e2[None] * Cq, dim=-1)
-
-        def dot3(x):
-            x = x[:, None]
-            return d0 * x[..., 0] + d1 * x[..., 1] + d2 * x[..., 2]
-
-        det = dot3(A[None])
-        udet = dot3(B)
-        vdet = dot3(Cq)
-        s = torch.where(det >= 0, 1.0, -1.0)
-        adet = det * s
-        u_, v_ = udet * s, vdet * s
-        t_ = sdet[:, None, :] * s
-        hit = ((adet > R._EPS) & (u_ >= 0) & (v_ >= 0) & (u_ + v_ <= adet)
-               & (t_ > 0) & ((base + lane) < num_tris))
-        t = torch.where(hit, t_ / torch.where(hit, adet,
-                                              torch.ones_like(adet)),
-                        torch.full_like(adet, torch.inf))
-        j = torch.argmin(t, dim=-1)
-        tj = torch.gather(t, -1, j[..., None])[..., 0]
-        closer = tj < best_t
-        best_id = torch.where(closer, base + j, best_id)
-        best_t = torch.where(closer, tj, best_t)
-    valid = R._unmasked(mesh, best_id, check_mask)
-    safe_id = torch.where(valid, best_id, torch.zeros_like(best_id))
-    q1, q2, q3 = p1[safe_id], p2[safe_id], p3[safe_id]
-    be1, be2 = q2 - q1, q3 - q1
-    bomv = origins[:, None, :] - q1
-    bB = cross(be2, bomv)
-    bCq = cross(bomv, be1)
-    bdet = torch.sum(dirs * cross(be2, be1), dim=-1)
-    bdet_ok = torch.abs(bdet) > R._EPS
-    valid = valid & bdet_ok
-    binv = torch.where(valid, 1.0 / torch.where(bdet_ok, bdet,
-                                                torch.ones_like(bdet)),
-                       torch.zeros_like(bdet))
-    uv = torch.stack([torch.sum(dirs * bB, dim=-1) * binv,
-                      torch.sum(dirs * bCq, dim=-1) * binv], dim=-1)
-    return R._ray_hits(q1, q2, q3, uv, best_t, best_id, valid)
+    best_t, best_id = R.sweep_plain(o, d, p1, p2 - p1, p3 - p1, chunk)
+    return R.hits_plain(o, d, p1, p2, p3, mesh.masked_triangles, best_t,
+                        best_id, check_mask)
 
 
-@pytest.mark.parametrize("kind,chunk", [("plain", 0), ("masked", 0),
-                                        ("duplicated", 0), ("masked", 64)])
-def test_raycast_grouped_unchanged_by_the_refactor(kind, chunk):
+@pytest.mark.parametrize("kind", ["plain", "masked", "duplicated"])
+@pytest.mark.parametrize("check_mask", [True, False])
+def test_hits_plain_matches_jax(rng, kind, check_mask):
+    """``hits_plain`` after ``sweep_plain`` against every field of the JAX
+    package's ``raycast_grouped``: ids and ``valid`` equal, positions,
+    normals and barycentrics within 1e-5, t within rtol 1e-5 where valid
+    (the two packages' cross products and sums round differently)."""
+    jm = _mesh(kind)
+    origins, dirs = _rays(rng, jm)
+    ref = jax_cast(jm, jnp.asarray(origins), jnp.asarray(dirs), check_mask)
+    got = _hits(jm, origins, dirs, check_mask)
+    v = np.asarray(ref.valid)
+    np.testing.assert_array_equal(got.valid.numpy(), v)
+    np.testing.assert_array_equal(got.prim_id.numpy(),
+                                  np.asarray(ref.prim_id).astype(np.int64))
+    for f in ("pos", "normal", "barycentric"):
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   np.asarray(getattr(ref, f)), atol=1e-5,
+                                   rtol=0)
+    np.testing.assert_allclose(got.t.numpy()[v], np.asarray(ref.t)[v],
+                               rtol=1e-5)
+    assert np.isinf(got.t.numpy()[~v]).all()
+    assert v.any() and (~v).any()
+    if kind == "masked":
+        # Masked closest hits dropped only where the mask is asked for.
+        unmasked = _hits(jm, origins, dirs, False).valid
+        assert bool((unmasked & ~got.valid).any()) == check_mask
+
+
+@pytest.mark.parametrize("kind,chunk,check_mask,G,K", [
+    ("plain", 0, True, 5, 120), ("masked", 0, True, 5, 120),
+    ("duplicated", 0, True, 5, 120), ("masked", 64, True, 5, 120),
+    ("masked", 0, False, 5, 120), ("masked", 0, True, 600, 1),
+    ("plain", 100, True, 3, 7)])
+def test_raycast_grouped_unchanged_by_the_refactor(kind, chunk, check_mask,
+                                                   G, K):
+    """``raycast_grouped`` on the CPU (``cast_plain``) against a frozen copy
+    of its arithmetic before the sweep and the hits were factored out,
+    every field to the bit, with and without the mask, at the groups of
+    one ray and small groups of the packed layout."""
     rng = np.random.default_rng(13)
     jm = _mesh(kind)
-    origins, dirs = _rays(rng, jm, G=5, K=120)
+    origins, dirs = _rays(rng, jm, G=G, K=max(K, 8))
+    dirs = np.ascontiguousarray(dirs[:, :K])
     mesh = convert.mesh(jm, device="cpu")
-    args = (mesh, torch.as_tensor(origins), torch.as_tensor(dirs), True,
-            chunk)
-    got, want = R.raycast_grouped(*args), _raycast_grouped_before(*args)
+    args = (mesh, torch.as_tensor(origins), torch.as_tensor(dirs),
+            check_mask, chunk)
+    got, want = R.raycast_grouped(*args), raycast_grouped_before(*args)
     for f in ("pos", "normal", "barycentric", "t", "prim_id", "valid"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert got.valid.any() and (~got.valid).any()
@@ -202,15 +181,16 @@ def test_cpu_tensors_never_load_the_library(rng, monkeypatch):
     origins, dirs = _rays(rng, jm)
     before = RS.launches
     mesh = convert.mesh(jm, device="cpu")
-    hits = R.raycast_grouped(mesh, torch.as_tensor(origins),
-                             torch.as_tensor(dirs))
-    t, ids = RS.raycast_sweep(torch.as_tensor(origins),
-                              torch.as_tensor(dirs), *_tris(mesh))
+    o, d = torch.as_tensor(origins), torch.as_tensor(dirs)
+    arrays = (mesh.vertices, mesh.triangles, mesh.masked_triangles)
+    hits = R.raycast_grouped(mesh, o, d)
+    direct = RS.raycast_hits(o, d, *arrays)
     assert RS.launches == before
     assert hits.valid.any()
-    want = R.sweep_plain(torch.as_tensor(origins), torch.as_tensor(dirs),
-                         *_tris(mesh))
-    assert torch.equal(ids, want[1]) and torch.equal(t, want[0])
+    want = R.cast_plain(o, d, *arrays)
+    for f in ("pos", "normal", "barycentric", "t", "prim_id", "valid"):
+        assert torch.equal(getattr(hits, f), getattr(want, f)), f
+        assert torch.equal(getattr(direct, f), getattr(want, f)), f
 
 
 def test_other_devices_raise_without_a_launch(monkeypatch):
@@ -220,26 +200,77 @@ def test_other_devices_raise_without_a_launch(monkeypatch):
         raise AssertionError("the kernel library was loaded")
 
     monkeypatch.setattr(build, "load", refuse)
-    meta = [torch.empty(s, device="meta") for s in ((2, 3), (2, 4, 3),
-                                                    (5, 3), (5, 3), (5, 3))]
+    meta = [torch.empty(s, dtype=dt, device="meta") for s, dt in (
+        ((2, 3), torch.float32), ((2, 4, 3), torch.float32),
+        ((5, 3), torch.float32), ((4, 3), torch.int64),
+        ((4,), torch.int64))]
+    before = RS.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        RS.raycast_hits(*meta)
+    assert RS.launches == before
+
+
+def _bad_inputs(case):
+    """A CPU cast's arguments with one of them broken as ``case`` says."""
+    jm = _mesh("masked")
+    origins, dirs = _rays(np.random.default_rng(3), jm, G=2, K=8)
+    mesh = convert.mesh(jm, device="cpu")
+    args = [torch.as_tensor(origins), torch.as_tensor(dirs), mesh.vertices,
+            mesh.triangles, mesh.masked_triangles]
+    which, how = case.split(":")
+    i = ("origins", "dirs", "vertices", "triangles", "words").index(which)
+    a = args[i]
+    args[i] = {"float64": lambda: a.double(), "int32": lambda: a.int(),
+               "float32": lambda: a.float(), "shape": lambda: a[..., :2],
+               "strided": lambda: a.t().contiguous().t(), "short": lambda: a[:3],
+               "meta": lambda: a.to("meta"),
+               "flat": lambda: a.reshape(-1)}[how]()
+    return args
+
+
+@pytest.mark.parametrize("case", [
+    "vertices:float64", "vertices:shape", "vertices:strided",
+    "vertices:meta", "triangles:int32", "triangles:float32",
+    "triangles:shape", "triangles:meta", "words:int32", "words:short",
+    "words:meta", "origins:flat", "dirs:float64"])
+def test_wrapper_checks_raise_without_the_library(case, monkeypatch):
+    """The wrapper's argument checks (type, shape, contiguity, device) raise
+    ValueError on CPU-built inputs before any route, the library never
+    loaded."""
+    def refuse(*args, **kw):
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(build, "load", refuse)
+    args = _bad_inputs(case)
     before = RS.launches
     with pytest.raises(ValueError):
-        RS.raycast_sweep(*meta)
+        RS.raycast_hits(*args)
     assert RS.launches == before
 
 
 @pytest.mark.parametrize("G,K,T,sms,want", [
-    (4, 2048, 20224, 132, (128, 16, 17)),   # a tracking frame
-    (250, 128, 1472, 132, (128, 1, 5)),     # config 4's prim refresh
-    (32000, 1, 1472, 132, (32, 1, 1)),      # the sharded flat cast
-    (7, 333, 5040, 132, (128, 3, 19)),
-    (1, 5, 100, 132, (32, 1, 1)),           # fewer triangles than a split
-    (1, 64, 100_000, 132, (64, 1, 64)),     # splits capped
+    (4, 2048, 20224, 132, (4, False, 16, 2)),   # a tracking frame
+    (250, 128, 1472, 132, (4, False, 1, 1)),    # config 4's prim refresh
+    (32000, 1, 1472, 132, (4, True, 250, 1)),   # the sharded flat cast
+    (7, 333, 5040, 132, (4, False, 3, 4)),
+    (2000, 1, 1472, 132, (4, True, 16, 2)),     # groups of one, packed
+    (7, 7, 5040, 132, (4, True, 1, 8)),         # K < 32: groups packed
+    (16, 31, 2944, 132, (4, True, 4, 4)),
+    (1, 5, 100, 132, (4, True, 1, 1)),          # fewer triangles than a tile
+    (1, 64, 100_000, 132, (2, False, 1, 8)),    # clusters capped
+    (3, 32, 4096, 132, (2, False, 1, 8)),       # K 32 to 64: two a thread
+    (4, 48, 20224, 132, (2, False, 1, 8)),      # a frame of 48 keypoints
+    (4, 2048, 20224, 16, (4, False, 16, 1)),    # the rays fill a small card
 ])
 def test_launch_plan(G, K, T, sms, want):
     plan = RS.launch_plan(G, K, T, sms)
     assert tuple(plan) == want
-    assert plan.threads % 32 == 0 and plan.threads <= RS.THREADS_MAX
-    assert plan.ray_blocks * plan.threads >= K
-    assert (plan.ray_blocks - 1) * plan.threads < K
-    assert 1 <= plan.splits <= max(1, T // RS.SPLIT_MIN_TRIS)
+    R, packed, ray_blocks, cluster = plan
+    rays = 32 * R
+    assert packed == (K < RS.PACKED_BELOW)
+    live = G * K if packed else K
+    assert ray_blocks * rays >= live > (ray_blocks - 1) * rays
+    blocks = ray_blocks * (1 if packed else G)
+    assert cluster == 1 or (blocks * cluster <= sms * RS.BLOCKS_PER_SM
+                            and T >= cluster * RS.TILE)
+    assert 1 <= cluster <= RS.CLUSTER_MAX and cluster & (cluster - 1) == 0
