@@ -6,12 +6,13 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     python3 chip_smoke.py
 
 1. Prints the torch and CUDA versions and the card's name and power limit.
-2. Builds the five kernels with nvcc, one process per source, in
+2. Builds the six kernels with nvcc, one process per source, in
    parallel: K1 the whole-solve LM PnP (csrc/pnp_lm.cu), K2 the LK prep
    (csrc/lk_prep.cu), K3 the LK iteration (csrc/lk_iter.cu), K4 GFTT's
    min-distance suppression (csrc/gftt_suppress.cu), K5 the whole
    ``raycast_grouped`` cast, its closest-hit sweep and its hits
-   (csrc/raycast_sweep.cu).
+   (csrc/raycast_sweep.cu), K6 the whole ``grid_raycast``, the uniform
+   grid's walk and its hits (csrc/grid_cast.cu).
 3. K1 phase: the kernel against its plain torch version on the card,
    over every loss × function_tol × (opt_f, opt_pp), points behind the
    camera, all points masked, N = 16384 and a batch of 8 solves, and over
@@ -62,8 +63,8 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    refresh ray cast, the normal equations, the solve and the cost, and the
    device busy share; K5 launched once per prim refresh of the timed run
    (the device route, below ``refiner.BVH_TRIANGLE_THRESHOLD``).  The
-   clip's DB is cast by the plain route on the card, as before K5, not by
-   K5.  One normal system of the problem (P = 2250, nb = 32, bs = 72) is
+   clip's DB is cast on a CPU copy of the mesh, as the tracking truth is.
+   One normal system of the problem (P = 2250, nb = 32, bs = 72) is
    solved by the banded and the dense solve, timed, and the two steps
    held within 1e-3 of each other.
 8. K5 phase: K5, the whole ``raycast_grouped`` cast in one launch, against
@@ -85,14 +86,36 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    of one tracking frame's ``raycast_grouped`` (K5 alone), forward
    tracking frames/s with K5 and with the plain route, in turns, and a
    profiled K5 run's busy share and device time by kernel.
-9. Pin phase (config 2, ``run_all.py:219-265``): 20 timed 8-pin Camera-type
+9. K6 phase: K6, the whole ``grid_raycast`` in one launch (a thread
+   walking each ray's cells), against its plain version
+   (``engine.gridcast.grid_plain``, the reference's lockstep loop in
+   torch) on the card, on eight scenes: the recorded tracking frame (4 ×
+   2048 rays, 20,224 triangles) and config 4's refresh (250 × 128 rays,
+   1,472 triangles) as flat rays, those rays on the sphere with 40
+   triangles masked, a soup of 20,000 triangles, axis-aligned rays from
+   inside and outside the tracking mesh, a huge triangle that coarsens the
+   grid, an empty mesh, and the tracking frame cut at ``max_iters`` 8.
+   Every field of the hits equal to the bit, one launch a call counted by
+   the wrapper and the library; then, but for the cut and the empty
+   scenes, against K5 and the flat ``raycast`` (plain torch) with the
+   mask on and off: ``valid`` and ids equal but on exact-t ties and on
+   rays through a triangle's edge (a hit within 1e-5 of it in u, v or
+   1 - u - v), t and positions within 1e-4 (tests/test_gridcast.py's
+   tolerance: the casts test in different Möller-Trumbore forms).  Prints per scene both
+   times, the bound (from the tests and cell actions the plain version
+   counts) and its share, the grid and the walks' work; the grid module's
+   entry points (``build_grid_accel``, ``grid_raycast_grouped`` on a
+   tracking frame, ``grid_raycast`` on config 4's refresh) with K6's
+   launches counted from 0; the builds' host times; K6 against K5 on
+   the tracking frame.
+10. Pin phase (config 2, ``run_all.py:219-265``): 20 timed 8-pin Camera-type
    drags and one drag of 16,384 surface points (the pins cast on a CPU copy
    of the mesh here and in the surface and add-on phases); every drag above
    ``pinmode.HOST_PIN_MAX`` points must launch K1 once, the big drag must
    agree with the host route within 1e-4, and K1 is held against its plain
    version on the drags' solver inputs.  (The host and device route times
    per pin count are ``python3 -m polychase_tpu_torch.crossover``'s.)
-10. Surface phase: the data of the phases above through
+11. Surface phase: the data of the phases above through
    ``polychase_tpu_torch.polychase_core`` with no device argument, so on
    the card by default (analyze and refine on every card).  An
    ``OpticalFlowThread`` on the panning clip (analyze's gates, the direct
@@ -109,7 +132,7 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    analyze frames/s and the 8-pin drag's ms, direct and through the
    surface (the threads, ``find_transformation``), in the order direct,
    surface, surface, direct.
-11. Segments phase: the segment-parallel paths.  ``track_segments`` on
+12. Segments phase: the segment-parallel paths.  ``track_segments`` on
     the tracking clip in 4 segments of 30 frames seeded from the truth at
     frames 0, 30, 60 and 90 (K1 at S = 4, N = 8192 a solve): every pose
     within the ground-truth thresholds and within 1e-4 (q) / 1e-3 (t) of
@@ -122,13 +145,18 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     falls, its anchors are untouched to the bit, its mean translation
     error (carried to the true focal, as for free-intrinsics tracking)
     falls below 0.6× the initial, and its translations lie within 2e-4 of
-    the sequential ``refine_trajectory``'s.  Then through
+    the sequential ``refine_trajectory``'s: both paths' accepted states
+    (each step taken, and its prims refreshed) held in order, up to and
+    with the first refresh whose prims differ, or to the shorter path's
+    last (``refine_seq_gate``), that refresh reported; it must not be the
+    start state, and at most 1e-3 of the valid prims may differ there.
+    Then through
     ``polychase_core`` with no device: ``device_count``, ``track_segments``
     and a ``RefineSegmentsThread``, each equal to the engine call within
     1e-6.  Prints tracking frames/s and refine seconds, sequential against
     segment-parallel, in turns (sequential, parallel, parallel,
     sequential).
-12. Sharded phase: analyze and refine split over every card, or over two
+13. Sharded phase: analyze and refine split over every card, or over two
     shards on card 0 when there is one (that runs the split, the per-shard
     launches and the sum, and measures no scaling).  The 24-frame panning
     clip through ``generate_optical_flow_database(device=list)`` (its
@@ -146,9 +174,12 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     the per-rebuild copy of a partial JᵀJ timed between two cards, refine's
     gates, and against the one-device refine the same iterations, the final
     cost within 1e-4 (relative) and every pose within 1e-4 rad and 1e-4.
+    The refine here reads config 4's clip cast by the plain route on the
+    card (``refine_inputs``' ``card_db``), the data this phase had before
+    the truth moved to the host.
     Then analyze frames/s and refine seconds, one device against the list,
     in turns (one, list, list, one).
-13. Analyze-routes phase: K4 against its plain version
+14. Analyze-routes phase: K4 against its plain version
     (``suppress_plain`` + ``_compact_kept``) on the clip's response maps
     (every 4th frame) and one 3840×2160 noise frame at d ∈ {1, 2.5, 5, 8}
     (kept maps and kept lists equal to the bit, converged, the same
@@ -171,7 +202,7 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     shards on card 0) against the one-device chained DB, with its K2/K3
     launches; the frames resumed on the card (a fixed point that outlasts
     ``gftt.MAX_ROUNDS`` rounds) in the whole run.
-14. Add-on phase: the Blender add-on copy as a user installs it.  The zip
+15. Add-on phase: the Blender add-on copy as a user installs it.  The zip
     of ``scripts/package_addon_torch.py`` is built and extracted into a
     temporary directory outside the checkout, its shim imported under the
     fake bpy of ``tests/`` with the checkout's package set aside and a fresh
@@ -191,14 +222,17 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     frame).  Then analyze and
     tracking frames/s through the surface and through the add-on, in turns
     (surface, add-on, add-on, surface).
-15. Prints the card, the kernels' JSON line (time, plain time, bound and
+16. Prints the card, the kernels' JSON line (time, plain time, bound and
     what sets it, launches on the main path (the analyze, tracking and pin
     phases) and apart in the refine, surface, segments, sharded, routes and
-    add-on phases, for K4 and K5 also their CUDA launches (one a call), for
-    K4 the rounds of the main path's frames, both neighbour reads' times
-    and its floor, for K5 config 4's refresh times, the groups of one
-    ray's, the frame's launch plan, registers and spills, and its cast's
-    device kernels, largest difference)
+    add-on phases, for K4, K5 and K6 also their CUDA launches (one a
+    call), for K4 the rounds of the main path's frames, both neighbour
+    reads' times and its floor, for K5 config 4's refresh times, the
+    groups of one ray's, the frame's launch plan, registers and spills, and
+    its cast's device kernels, for K6 the launches of the grid module's
+    entry points, the refresh times, the threads a block, registers,
+    spills, the grid's build and the difference from K5 and the flat
+    cast, largest difference)
     and, last, ``{"ok": true, ...}``.
 
 Any failed check raises, so the script exits non-zero without the last line.
@@ -216,6 +250,8 @@ import time
 
 import numpy as np
 import torch
+
+from polychase_tpu_torch.timing import device_work, event_ms
 
 # Pose errors against ground truth: the thresholds of tests/test_tracker.py.
 ROT_ERR_MAX = 2e-3   # rad
@@ -262,6 +298,11 @@ TRACK_SEEDS, TRACK_SEGMENT = (0, 30, 60, 90), 30
 REFINE_KEYS = (0, 50, 100, 150, 200, 249)
 Q_PAIR, T_PAIR = 1e-4, 1e-3
 REFINE_T_SHARE, REFINE_SEQ_ATOL = 0.6, 2e-4
+# At the first refresh whose prims differ (refine_seq_gate), at most this
+# share of the valid prims may differ: a refresh that moves a ray or two
+# across a triangle's edge passes, a wrong cast does not.  Never at the
+# start state, which both paths cast from the same t.
+REFINE_SPLIT_SHARE = 1e-3
 # Where the truth is cast (tracking's and refine's flow DBs, the pins).
 CPU = torch.device("cpu")
 
@@ -399,27 +440,6 @@ def compare(name, got, ref, params, opt):
                                atol=INTR_ATOL):
         fails.append(f"{name}: intrinsics {got[:, 7:11]} vs {ref[:, 7:11]}")
     return dpose, fails
-
-
-# Cycles the device sleeps before a timed run (20 ms at the H100's 1980 MHz
-# at most): the run's launches queue behind it, so the events time the
-# device's work, not the host's issue rate (K1 takes less time than its
-# wrapper's host side, ~40 us a call, and a run issues up to 100 calls).
-SLEEP_CYCLES = 40_000_000
-
-
-def event_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def k1_shape(args, kw):
@@ -1245,17 +1265,21 @@ def refine_inputs(device, workdir, *, n_frames=REFINE_FRAMES,
         return noisy_trajectory(poses, intr, rng, REFINE_T_SIGMA)
 
     db_path = os.path.join(workdir, "refine.db")
-    # Cast by the plain route on the card, as before K5, not by K5.  Cast
-    # on the host, its hits round differently in their last bits, which
-    # moves refine_segments from the sequential refines past
-    # REFINE_SEQ_ATOL: the two paths' LM decisions part where a refresh
-    # moves a prim or at a tolerance stop (``python3 -m
-    # polychase_tpu_torch.segments_compare``; PERF.md, section 7).
-    with plain_route():
-        build_flow_db(db_path, mesh, FOCAL, WIDTH, HEIGHT, poses, rng,
-                      keypoints, NOISE_PX)
-    return dict(db=db_path, verts=verts, tris=tris, poses=poses,
-                noisy=noisy), mesh
+    # Cast on a CPU copy of the mesh, as the tracking truth and the pins
+    # are, so that the truth passes through no card's rounding.
+    build_flow_db(db_path, Mesh.create(verts, tris, device=CPU), FOCAL,
+                  WIDTH, HEIGHT, poses, rng, keypoints, NOISE_PX)
+
+    def card_db(path):
+        """The same clip's DB (the same draws) cast by the plain route on
+        the card, as the truth was cast before it moved to the host: the
+        sharded phase's data (module docstring, item 13)."""
+        with plain_route():
+            build_flow_db(path, mesh, FOCAL, WIDTH, HEIGHT, poses,
+                          np.random.default_rng(seed), keypoints, NOISE_PX)
+        return path
+    return dict(db=db_path, card_db=card_db, verts=verts, tris=tris,
+                poses=poses, noisy=noisy), mesh
 
 
 def refine_phase(device, workdir, **size):
@@ -1418,7 +1442,13 @@ def k5_bound(args):
 def k5_registers(log, plan):
     """Registers and spill bytes of the kernel ``plan`` launches, from
     K5's ``nvcc -Xptxas -v`` log."""
-    name = f"hits_kernelILi{plan.rays_per_thread}ELb{int(plan.packed)}E"
+    return kernel_registers(
+        log, f"hits_kernelILi{plan.rays_per_thread}ELb{int(plan.packed)}E")
+
+
+def kernel_registers(log, name):
+    """Registers and spill bytes of the entry function whose mangled name
+    holds ``name``, from an ``nvcc -Xptxas -v`` log."""
     found, regs, spills = False, None, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -1482,36 +1512,6 @@ def k5_check(label, args, plain_reps=3):
           f"{bound[0]:.6f} ms ({bound[1]}), {bound[0] / ms:.4f} of it; "
           f"launches {launched[0]} (CUDA {launched[1]})")
     return fails, max_err, ms, plain, bound, plan
-
-
-QUEUED = ("cudaLaunch", "cudaMemcpy", "cudaMemset")
-
-
-def device_work(fn):
-    """What ``fn`` queued on the device, under ``torch.profiler``: the CUDA
-    runtime's kernel launches, copies and fills (its API calls, which the
-    profiler records as they are made) and the device's kernels, copies and
-    fills as (name, ms) (which it may miss in a window this short).  ``fn`` runs
-    once under a first profiler, which is thrown away, so that the
-    profiler's own set-up falls outside the window read.  Returns (queued,
-    ran, what the second call of ``fn`` returned)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-    host = {e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CPU}
-    events = list(prof.profiler.kineto_results.events())
-    queued = [e.name() for e in events
-              if e.device_type() == torch.autograd.DeviceType.CPU
-              and e.name().startswith(QUEUED)]
-    ran = [(e.name(), (e.end_ns() - e.start_ns()) / 1e6) for e in events
-           if e.device_type() == torch.autograd.DeviceType.CUDA
-           and e.name() not in host]
-    return queued, ran, out
 
 
 def k5_tracking_turns(device, track, smi):
@@ -1623,6 +1623,292 @@ def k5_phase(device, track, refine, smi):
     k5_tracking_turns(device, track, smi)
     return dict(max_abs_err=max_err, scenes=results,
                 frame_step_kernels=len(queued))
+
+
+# ---------------------------------------------------------------------------
+# K6 phase
+# ---------------------------------------------------------------------------
+
+# f32 operations of the grid cast, as the walks of this run's data need them
+# (their candidate tests and cell actions counted by ``grid_plain_counted``).
+# A candidate test: two cross products (9 each: a product and an FMA a
+# component), four sums of products (5 each), |det| and its compare (2),
+# the reciprocal (1), o - p1 (3), three products by 1/det (3), u + v and
+# five compares (6), the compare with the best t (1): 54.  A cell action:
+# the exit's min (2) and its compare (1), the axis (2), the step and its
+# bounds test (2), the tmax update (1), the flat index (4) and the
+# boundary's subtraction (1): 13.  A ray: the grid's far corner (6), the
+# slab (10 an axis), t0, t1, the start and the entry test (7), the start
+# point and cell (7 an axis), the first boundaries, tmax and tdelta (7 an
+# axis), the flat index (4): 89; its hit: the mask bit (3), e1 and e2 (6),
+# the weights and the position (17), the normal (9 + 7 + 3): 45.
+K6_OPS_TEST, K6_OPS_STEP, K6_OPS_RAY = 54, 13, 134
+# K6 against K5 and the flat ``raycast``: tests/test_gridcast.py's
+# tolerance (``_assert_hits_match``): the grid tests its candidates in the
+# general Möller-Trumbore form, K5 in a factored one, the flat cast with
+# the edges formed a chunk at a time, so t and the hit round differently.
+K6_SWEEP_TOL = 1e-4
+# A hit this close to its triangle's edge (in u, v or 1 - u - v) may fall
+# on either side of it, or into neither neighbour, in another test form.
+K6_EDGE = 1e-5
+K6_SMALL_ITERS = 8
+
+
+def k6_bound(n, accel, mesh, found, valid, check_mask, tests, steps):
+    """K6 on ``n`` rays: the grid (``cell_start``, ``items``, the 48-byte
+    triangle rows) and the rays read once; of the mesh, what the hits need
+    read once: the mask word of each distinct closest triangle (``found``,
+    before the mask test) where the mask is checked, and the indices (24
+    bytes) and corners (12 bytes a vertex) of each distinct triangle hit
+    (``valid``); the hits (45 bytes a ray) written once.  The operations
+    of the ``tests`` candidate tests and ``steps`` cell actions this run's
+    walks took, and of every ray."""
+    from polychase_tpu_torch.engine.raycast import INVALID_ID
+
+    hit = torch.unique(found[valid])
+    corners = torch.unique(mesh.triangles[hit])
+    words = (torch.unique(found[found != INVALID_ID] >> 5).numel()
+             if check_mask else 0)
+    nbytes = (4 * (accel.cell_start.numel() + accel.items.numel()
+                   + accel.tri_rows.numel())
+              + 24 * hit.numel() + 12 * corners.numel() + 8 * words
+              + n * (24 + 45))
+    return bound_ms(nbytes, tests * K6_OPS_TEST + steps * K6_OPS_STEP
+                    + n * K6_OPS_RAY)
+
+
+def k6_check(label, mesh, accel, o, d, plain_reps=1, **kw):
+    """K6 against its plain version (``grid_plain``) on the card: every
+    field of the hits to the bit, one launch counted by the wrapper and by
+    the library; prints both times, the bound, its share and the walks'
+    work.  Returns (failures, K6's hits, the largest difference in
+    position, normal or barycentrics, kernel ms, plain ms, (bound ms, what
+    bounds it), (tests, cell actions, lockstep iterations))."""
+    from polychase_tpu_torch.engine.gridcast import grid_plain_counted
+    from polychase_tpu_torch.kernels import grid_cast
+
+    arrays = (mesh.vertices, mesh.triangles, mesh.masked_triangles)
+    n = o.shape[0]
+    before = (grid_cast.launches, grid_cast.cuda_launches())
+    got = grid_cast.grid_hits(o, d, accel, *arrays, **kw)
+    launched = (grid_cast.launches - before[0],
+                grid_cast.cuda_launches() - before[1])
+    want, tests, steps, its, found = grid_plain_counted(o, d, accel, *arrays,
+                                                        **kw)
+    torch.cuda.synchronize()
+    fails = []
+    if launched != (1, 1):
+        fails.append(f"{label}: K6 launched {launched}, want one call and "
+                     f"one CUDA launch")
+    for f in HIT_FIELDS:
+        a, b = getattr(got, f), getattr(want, f)
+        if not torch.equal(a, b):
+            rays = (a != b).reshape(n, -1).any(dim=1)
+            fails.append(f"{label}: {f} differs from grid_plain's on "
+                         f"{int(rays.sum())} of {n} rays")
+    max_err = max([float((getattr(got, f) - getattr(want, f)).abs().max())
+                   for f in ("pos", "normal", "barycentric") if n] + [0.0])
+    ms = event_ms(lambda: grid_cast.grid_hits(o, d, accel, *arrays, **kw), 20)
+    plain = event_ms(lambda: grid_plain_counted(o, d, accel, *arrays, **kw),
+                     plain_reps)
+    bound = k6_bound(n, accel, mesh, found, want.valid,
+                     kw.get("check_mask", True), tests, steps)
+    res = accel.res.tolist()
+    threads = grid_cast.block_threads(n, grid_cast._sm_count(o.device))
+    print(f"  {label} (N {n}, T {mesh.num_triangles}, grid {res}, "
+          f"{accel.items.shape[0]} items, {kw or 'defaults'}; {threads} "
+          f"threads a block): every field equal to grid_plain's: "
+          f"{not fails}, {int(want.valid.sum())} hits; {tests} tests, "
+          f"{steps} cell actions, {its} lockstep iterations; K6 {ms:.4f} "
+          f"ms, plain {plain:.4f} ms; bound {bound[0]:.6f} ms "
+          f"({bound[1]}), {bound[0] / ms:.4f} of it; launches "
+          f"{launched[0]} (CUDA {launched[1]})")
+    return fails, got, max_err, ms, plain, bound, (tests, steps, its)
+
+
+def sweep_agreement(label, what, grid, other, grid_nm, other_nm):
+    """K6's hits against another cast's (``what``: K5's, the flat
+    ``raycast``'s) on the same rays: ``valid`` and ids equal but on exact-t
+    ties and edges, t and positions within ``K6_SWEEP_TOL`` (rtol and
+    atol).  A ray whose id or ``valid`` differs is a tie where both casts
+    with the mask off (``grid_nm``, ``other_nm``) hit at one t, within the
+    tolerance (two triangles at one distance, the grid's first in visiting
+    order, the sweep's the lowest id), and an edge where either cast's hit
+    lies within ``K6_EDGE`` of its triangle's edge (the two test forms'
+    rounding puts the ray on either side of it, or through the crack
+    between the neighbours).  Returns (failures, largest t or position
+    difference, ties, edges)."""
+    def on_edge(h):
+        u, v = h.barycentric[:, 0], h.barycentric[:, 1]
+        w = torch.minimum(torch.minimum(u, v), 1.0 - u - v)
+        return h.valid & (w <= K6_EDGE)
+
+    fails = []
+    differ = (grid.valid != other.valid) | (grid.prim_id != other.prim_id)
+    near = (grid_nm.t - other_nm.t).abs() <= K6_SWEEP_TOL * (
+        1 + other_nm.t.abs())
+    tie = differ & grid_nm.valid & other_nm.valid & near
+    edge = differ & ~tie & (on_edge(grid) | on_edge(other) | on_edge(grid_nm)
+                            | on_edge(other_nm))
+    if bool((differ & ~tie & ~edge).any()):
+        fails.append(f"{label}: valid or ids differ from {what}'s on "
+                     f"{int((differ & ~tie & ~edge).sum())} rays that are "
+                     f"neither a tie nor on an edge")
+    both = grid.valid & other.valid & ~differ
+    err = 0.0
+    for f in ("t", "pos"):
+        a, b = getattr(grid, f)[both], getattr(other, f)[both]
+        if a.numel():
+            err = max(err, float((a - b).abs().max()))
+            if not torch.allclose(a, b, rtol=K6_SWEEP_TOL, atol=K6_SWEEP_TOL):
+                fails.append(f"{label}: {f} differs from {what}'s by more "
+                             f"than {K6_SWEEP_TOL}")
+    return fails, err, int(tie.sum()), int(edge.sum())
+
+
+def k6_phase(device, track, refine, k5, smi):
+    """K6 against its plain version, K5 and the flat ``raycast`` on the
+    scenes of the module docstring (item 9), the grid module's entry
+    points with their launches counted, and the builds timed.  Returns
+    what the kernels line reports of K6."""
+    from polychase_tpu_torch.engine import gridcast as GC
+    from polychase_tpu_torch.engine.geometry import (
+        Mesh, mask_array_size, set_mask_bits,
+    )
+    from polychase_tpu_torch.engine.raycast import raycast
+    from polychase_tpu_torch.kernels import grid_cast, raycast_sweep
+    from polychase_tpu_torch.synthetic import uv_sphere
+
+    rng = np.random.default_rng(11)
+    dev = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa: E731
+                                    device=device)
+
+    def flat(o, d):
+        return (o[:, None, :].expand(d.shape).reshape(-1, 3).contiguous(),
+                d.reshape(-1, 3).contiguous())
+
+    def from_sphere(n, radius, spread):
+        o = rng.normal(size=(n, 3))
+        o = radius * o / np.linalg.norm(o, axis=-1, keepdims=True)
+        return o, rng.normal(0, spread, (n, 3)) - o
+
+    frame, rsweep = track["sweep"], refine["sweep"]
+    tmesh = Mesh.create(track["verts"], track["tris"], device=device)
+    rmesh = Mesh.create(refine["verts"], refine["tris"], device=device)
+    words = np.zeros(mask_array_size(len(refine["tris"])), np.uint32)
+    for i in rng.choice(len(refine["tris"]), 40, replace=False):
+        words = set_mask_bits(words, int(i), "mask")
+    masked = Mesh.create(refine["verts"], refine["tris"], words,
+                         device=device)
+    n_tri = 20_000
+    centers = rng.uniform(-2, 2, (n_tri, 1, 3))
+    soup = Mesh.create((centers + rng.normal(0, 0.1, (n_tri, 3, 3))).reshape(
+        -1, 3), np.arange(3 * n_tri).reshape(-1, 3), device=device)
+    so, sd = from_sphere(8192, 6.0, 1.0)
+    axes = np.concatenate([np.eye(3), -np.eye(3)])
+    ao = np.concatenate([rng.uniform(-0.5, 0.5, (2048, 3)),
+                         rng.uniform(-3, 3, (2048, 3))])
+    ad = axes[rng.integers(0, 6, 4096)]
+    hv, ht = uv_sphere(16, 24)
+    hv = np.concatenate([hv, [[-50, -50, -2], [50, -50, -2], [0, 80, -2]]])
+    ht = np.concatenate([ht, [[len(hv) - 3, len(hv) - 2, len(hv) - 1]]])
+    huge = Mesh.create(hv, ht, device=device)
+    ho, hd = from_sphere(4096, 8.0, 0.8)
+    hd[:1024] = [0.1, 0.05, -1.0]
+    empty = Mesh.create(np.zeros((0, 3)), np.zeros((0, 3)), device=device)
+
+    grids, build_ms = {}, {}
+
+    def accel(label, mesh):
+        if id(mesh) not in grids:
+            t0 = time.perf_counter()
+            grids[id(mesh)] = GC.build_grid_accel(
+                mesh.vertices, mesh.triangles, device=device)
+            torch.cuda.synchronize()
+            build_ms[label] = (time.perf_counter() - t0) * 1e3
+        return grids[id(mesh)]
+
+    # (label, mesh, flat rays, K5's grouped rays or None, keywords)
+    scenes = [
+        ("tracking frame", tmesh, flat(*frame[:2]), frame[:2], {}),
+        ("config 4 refresh", rmesh, flat(*rsweep[:2]), rsweep[:2], {}),
+        ("40 triangles masked", masked, flat(*rsweep[:2]), rsweep[:2], {}),
+        ("soup of 20,000", soup, (dev(so), dev(sd)), None, {}),
+        ("axis-aligned, inside", tmesh, (dev(ao), dev(ad)), None, {}),
+        ("huge triangle", huge, (dev(ho), dev(hd)), None, {}),
+        ("empty mesh", empty, (dev(ho[:1024]), dev(hd[:1024])), None, {}),
+        (f"max_iters {K6_SMALL_ITERS}", tmesh, flat(*frame[:2]), None,
+         dict(max_iters=K6_SMALL_ITERS)),
+    ]
+    fails, max_err, sweep_err, results = [], 0.0, 0.0, {}
+    for label, mesh, (o, d), grouped, kw in scenes:
+        acc = accel(label, mesh)
+        f, got, err, ms, plain, bound, work = k6_check(label, mesh, acc, o,
+                                                       d, **kw)
+        fails += f
+        max_err = max(max_err, err)
+        results[label] = (ms, plain, bound, work)
+        if kw or not mesh.num_triangles:
+            if not mesh.num_triangles and bool(got.valid.any()):
+                fails.append("a ray hit the empty mesh")
+            continue
+        arrays = (mesh.vertices, mesh.triangles, mesh.masked_triangles)
+        nm = grid_cast.grid_hits(o, d, acc, *arrays, False)
+        if grouped is None:
+            grouped = (o, d[:, None, :].contiguous())
+        k5_hits = [raycast_sweep.raycast_hits(*grouped, *arrays, m)
+                   for m in (True, False)]
+        k5_hits = [type(h)(*(getattr(h, f).reshape(o.shape[0], *getattr(
+            h, f).shape[2:]) for f in HIT_FIELDS)) for h in k5_hits]
+        flat_cast = [raycast(mesh, o, d, m) for m in (True, False)]
+        notes = []
+        for what, (other, other_nm) in (("K5", k5_hits),
+                                        ("raycast", flat_cast)):
+            f, err, ties, edges = sweep_agreement(label, what, got, other,
+                                                  nm, other_nm)
+            fails += f
+            sweep_err = max(sweep_err, err)
+            notes.append(f"{what}: max |t, pos diff| {err:.3g}, {ties} "
+                         f"exact-t ties, {edges} on an edge")
+        print(f"    against {'; '.join(notes)}")
+    if fails:
+        raise AssertionError("K6:\n" + "\n".join(fails))
+
+    # The grid module's entry points, as a user calls them, counts at 0.
+    grid_cast.launches = 0
+    cuda0 = grid_cast.cuda_launches()
+    taccel = GC.build_grid_accel(track["verts"], track["tris"],
+                                 device=device)
+    hits = GC.grid_raycast_grouped(tmesh, taccel, *frame[:2])
+    rhits = GC.grid_raycast(rmesh, GC.build_grid_accel(
+        refine["verts"], refine["tris"], device=device),
+        *flat(*rsweep[:2]))
+    torch.cuda.synchronize()
+    launches = grid_cast.launches
+    cuda = grid_cast.cuda_launches() - cuda0
+    same = torch.equal(hits.prim_id.reshape(-1), grid_cast.grid_hits(
+        *flat(*frame[:2]), taccel, tmesh.vertices, tmesh.triangles,
+        tmesh.masked_triangles).prim_id) and bool(rhits.valid.any())
+    print(f"  grid_raycast_grouped on a tracking frame and grid_raycast on "
+          f"config 4's refresh: K6 launches {launches} (CUDA {cuda}); "
+          f"the frame's ids equal K6's above: {same}; grid builds "
+          f"(host, numpy) "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in build_ms.items()))
+    if (launches, cuda) != (2, 2) or not same:
+        raise AssertionError(f"K6: the grid module's entry points launched "
+                             f"{launches} times (CUDA {cuda}), ids equal "
+                             f"{same}")
+    k5_frame = k5["scenes"]["tracking frame"][0]
+    k6_frame = results["tracking frame"][0]
+    print(f"  a tracking frame ({frame[1].shape[0] * frame[1].shape[1]} "
+          f"rays, {tmesh.num_triangles} triangles): K6 {k6_frame:.4f} ms "
+          f"against K5 {k5_frame:.4f} ms on {smi}")
+    return dict(launches=launches, cuda_launches=cuda, scenes=results,
+                max_abs_err=max_err, sweep_max_abs_err=sweep_err,
+                threads=grid_cast.block_threads(
+                    frame[1].shape[0] * frame[1].shape[1],
+                    grid_cast._sm_count(device)),
+                build_ms=build_ms["tracking frame"])
 
 
 # ---------------------------------------------------------------------------
@@ -2023,6 +2309,90 @@ def surface_phase(device, frames, analyze_db, track, refine, workdir, smi):
 # ---------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def refine_records():
+    """Record the accepted states of the refines run in the block, for
+    :func:`refine_seq_gate`: yields ``(lock, seq)``.  ``lock`` gets, for
+    each ``LockstepLM`` (one a ``refine_segments`` call on one device), its
+    segments' lists of (t, prims), CPU copies of each segment's F stacked
+    frames, at the start and after each step it took; ``seq`` gets, for
+    each ``refine_trajectory`` call, the (t, prims) of each prim refresh,
+    which it makes at the start and after each accepted step."""
+    from polychase_tpu_torch.engine import refiner as R
+
+    lock, seq = [], []
+    real_iterate, real_make = R.LockstepLM.iterate, R._make_prim_refresher
+
+    def iterate(self, scal_h):
+        F = self.F
+        rows = [slice(s * F, (s + 1) * F) for s in range(self.S)]
+        if getattr(self, "_records", None) is None:
+            self._records = [[(self.params.t[r].cpu(), self.prims[r].cpu())]
+                             for r in rows]
+            lock.append(self._records)
+        before = self.params.t.clone()
+        real_iterate(self, scal_h)
+        for r, states in zip(rows, self._records):
+            if not torch.equal(before[r], self.params.t[r]):
+                states.append((self.params.t[r].cpu(), self.prims[r].cpu()))
+
+    def make(*args, **kw):
+        refresh, states = real_make(*args, **kw), []
+        seq.append(states)
+
+        def recorded(params):
+            prims, cost = refresh(params)
+            states.append((params.t.cpu(), prims.cpu()))
+            return prims, cost
+        return recorded
+
+    R.LockstepLM.iterate, R._make_prim_refresher = iterate, make
+    try:
+        yield lock, seq
+    finally:
+        R.LockstepLM.iterate, R._make_prim_refresher = (real_iterate,
+                                                        real_make)
+
+
+def refine_seq_gate(lock_states, seq_states):
+    """One segment of ``refine_segments`` against its sequential
+    ``refine_trajectory``, from :func:`refine_records`' lists: the two
+    paths' accepted states are walked in order, each held in t, up to and
+    with the first whose refreshed prims differ (its t still came from the
+    same prims; after it the two paths refine different problems, as the
+    reference's rules have them do) or the shorter path's last (one path's
+    tolerance stop).  Where neither comes first, the last states, the
+    refined outputs, are held too.  Returns (the largest |dt| of the
+    states held, the index of the first refresh whose prims differ or
+    None, the share of the prims valid in either path that differ there
+    (0 where none do), the lockstep's and the sequential path's accepted
+    steps)."""
+    dt, split, moved = 0.0, None, 0.0
+    for j, ((ta, pa), (tb, pb)) in enumerate(zip(lock_states, seq_states)):
+        n = tb.shape[0]
+        dt = max(dt, float((ta[:n] - tb).abs().max()))
+        pa = pa[:n]
+        if not torch.equal(pa, pb):
+            split = j
+            moved = int((pa != pb).sum()) / max(1, int(((pa >= 0)
+                                                        | (pb >= 0)).sum()))
+            break
+    return dt, split, moved, len(lock_states) - 1, len(seq_states) - 1
+
+
+def refine_split_fails(label, split, moved):
+    """The failures of a split that :func:`refine_seq_gate` reports: prims
+    that differ at the start state, or more than ``REFINE_SPLIT_SHARE`` of
+    them at the split."""
+    fails = []
+    if split == 0:
+        fails.append(f"{label}: the prims differ at the start state")
+    if moved > REFINE_SPLIT_SHARE:
+        fails.append(f"{label}: {moved:.3g} of the prims differ at refresh "
+                     f"{split}, over {REFINE_SPLIT_SHARE}")
+    return fails
+
+
 def segment_cost(db_path, traj, mesh, device, opts) -> float:
     """The refine cost of ``traj`` (its prims cast afresh), on ``device``."""
     from polychase_tpu_torch.engine import refiner as R
@@ -2042,7 +2412,7 @@ def segment_cost(db_path, traj, mesh, device, opts) -> float:
 
 def segments_phase(device, track, refine, smi):
     """The segment-parallel paths on the tracking clip and config 4, direct
-    and through ``polychase_core`` (module docstring, item 11).  Returns
+    and through ``polychase_core`` (module docstring, item 12).  Returns
     K1's launches in the gated ``track_segments`` run, K1's largest pose
     difference from its plain version on that path's recorded S = 4
     launches, and K5's launches in that run."""
@@ -2207,8 +2577,9 @@ def segments_phase(device, track, refine, smi):
     finally:
         R.damped_block_tridiag_solve = real_band
     inputs = segments()
-    out, _ = parallel_refine()
-    seq, _ = sequential_refine()
+    with refine_records() as (lock, seq_states):
+        out, _ = parallel_refine()
+        seq, _ = sequential_refine()
     print(f"  refine_segments: {len(bounds)} segments of "
           f"{[b - a + 1 for a, b in bounds]} frames, the batched banded solve "
           f"{banded[0] if banded else 'NOT taken'}")
@@ -2224,7 +2595,8 @@ def segments_phase(device, track, refine, smi):
                                               carried) for f in frames]))
 
     dseq = 0.0
-    for (a, b), t_in, t_out, t_seq in zip(bounds, inputs, out, seq):
+    for k, ((a, b), t_in, t_out, t_seq) in enumerate(zip(bounds, inputs, out,
+                                                         seq)):
         frames = range(a, b + 1)
         # The focal is free, and the clip pins down depth only with it:
         # the refined translation is judged carried to the true focal, as
@@ -2236,11 +2608,17 @@ def segments_phase(device, track, refine, smi):
         c1 = segment_cost(refine["db"], t_out, rmesh, device, ropts)
         d = max(float(np.abs(fields(t_out, f)[1] - fields(t_seq, f)[1]).max())
                 for f in frames)
-        dseq = max(dseq, d)
+        held, split, moved, n_lock, n_seq = refine_seq_gate(lock[0][k],
+                                                            seq_states[k])
+        dseq = max(dseq, held)
+        fails += refine_split_fails(f"segment {a}-{b}", split, moved)
         print(f"    segment {a}-{b}: cost {c0:.4f} -> {c1:.4f}, mean t err "
               f"{before:.3g} -> {after:.3g} ({after / before:.3f} of it; "
               f"{raw:.3g} before the focal trade-off); against the "
-              f"sequential refine |dt| {d:.3g}")
+              f"sequential refine: accepted steps {n_lock} / {n_seq}, "
+              f"prims first differ at refresh "
+              f"{'none' if split is None else split} ({moved:.3g} of "
+              f"them), |dt| {held:.3g} up to it ({d:.3g} at the end)")
         if not c1 < c0:
             fails.append(f"segment {a}-{b}: the cost did not fall")
         if not after < REFINE_T_SHARE * before:
@@ -2251,9 +2629,12 @@ def segments_phase(device, track, refine, smi):
             if not (np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
                     and x[2] == y[2]):
                 fails.append(f"segment {a}-{b}: anchor frame {f} moved")
+    if len(lock) != 1 or len(seq_states) != len(bounds):
+        fails.append(f"recorded {len(lock)} lockstep runs and "
+                     f"{len(seq_states)} sequential refines")
     if dseq > REFINE_SEQ_ATOL:
         fails.append(f"refine_segments differs from the sequential refines "
-                     f"by {dseq:.3g}")
+                     f"by {dseq:.3g} before their prims part")
 
     # Through polychase_core, with no device argument.
     pintr = pc.CameraIntrinsics(FOCAL, FOCAL, WIDTH / 2, HEIGHT / 2, 1.0,
@@ -2340,7 +2721,10 @@ SHARD_JTJ_RTOL, SHARD_JTJ_ATOL = 1e-3, 1e-5
 # the final cost within this relative difference and every pose within
 # this many rad and scene units. The two differ only in the order the
 # normal equations are summed (poses 5.25e-6 apart on an H100 80GB HBM3,
-# two shards on one card).
+# two shards on one card).  On config 4's DB cast on the card; on the one
+# cast on the host the two refines accept the same 4 steps, their prims
+# part at the last refresh and one stops an iteration later (4 against 5),
+# which this gate does not allow for (ROADMAP, Queue 3).
 SHARD_COST_RTOL = 1e-4
 SHARD_POSE = 1e-4
 
@@ -2387,7 +2771,7 @@ def same_solve(got, ref):
 
 def sharded_phase(device, frames, analyze_db, refine, smi):
     """Analyze and refine split over several devices (module docstring,
-    item 12).  Returns the K2 and K3 launches of the gated split analyze."""
+    item 13).  Returns the K2 and K3 launches of the gated split analyze."""
     from polychase_tpu_torch.engine import lk
     from polychase_tpu_torch.engine import refiner as R
     from polychase_tpu_torch.engine.camera import CameraState
@@ -2520,7 +2904,8 @@ def sharded_phase(device, frames, analyze_db, refine, smi):
         print("  a solve's levels to the other shard: none, both shards are "
               f"on {devices[0]} (not measured)")
 
-    # Refine, config 4, over the devices.
+    # Refine, config 4, over the devices, on the clip cast on the card.
+    refine_db = refine["card_db"](os.path.join(workdir, "refine_card.db"))
     poses = refine["poses"]
     nf = len(poses)
     mesh = Mesh.create(refine["verts"], refine["tris"], device=device)
@@ -2540,13 +2925,13 @@ def sharded_phase(device, frames, analyze_db, refine, smi):
     def refined(on, callback=None):
         traj = copy(start)
         t0 = time.perf_counter()
-        R.refine_trajectory(refine["db"], traj, eye4, mesh,
+        R.refine_trajectory(refine_db, traj, eye4, mesh,
                             optimize_focal_length=True, callback=callback,
                             bundle_opts=ropts, device=on)
         torch.cuda.synchronize()
         return traj, time.perf_counter() - t0
 
-    db = Database(refine["db"])
+    db = Database(refine_db)
     try:
         data = R.build_refiner_data(db, start, mesh, eye4, device=device)
     finally:
@@ -2760,7 +3145,7 @@ def chain_gates(kps, flows, ref_kps, ref_flows):
 
 def routes_phase(device, frames, analyze_db, smi):
     """GFTT's device suppression route and the chained skip fan (module
-    docstring, item 13).  Returns K4's comparison results and the launches
+    docstring, item 14).  Returns K4's comparison results and the launches
     of the gated chained runs."""
     from polychase_tpu_torch.engine import gftt, lk
     from polychase_tpu_torch.engine.opticalflow import (
@@ -3161,7 +3546,7 @@ def extracted_addon(zip_path, tests_dir):
 def addon_phase(device, frames, track, surface, workdir, smi,
                 addon_device=None):
     """The Blender add-on copy installed from its release zip (module
-    docstring, item 14), its engine calls on ``addon_device``, the copy's
+    docstring, item 15), its engine calls on ``addon_device``, the copy's
     ``core.DEVICE`` (None: the card, as a user's Blender runs it).
     ``device`` runs the checkout's reference calls.  Returns the K1, K2,
     K3, K4 and K5 launches of its gated runs."""
@@ -3489,7 +3874,8 @@ def main() -> None:
                          "on a GPU")
     from polychase_tpu_torch.backend import require_cuda
     from polychase_tpu_torch.kernels import (
-        build, gftt_suppress, lk_iter, lk_prep, pnp_lm, raycast_sweep,
+        build, gftt_suppress, grid_cast, lk_iter, lk_prep, pnp_lm,
+        raycast_sweep,
     )
     from polychase_tpu_torch.synthetic import panning_clip
 
@@ -3500,14 +3886,16 @@ def main() -> None:
     print("build (one nvcc per source, in parallel):")
     t0 = time.perf_counter()
     libs = build.load_all(["pnp_lm.cu", "lk_prep.cu", "lk_iter.cu",
-                           "gftt_suppress.cu", "raycast_sweep.cu"])
-    for mod in (pnp_lm, lk_prep, lk_iter, gftt_suppress, raycast_sweep):
+                           "gftt_suppress.cu", "raycast_sweep.cu",
+                           "grid_cast.cu"])
+    for mod in (pnp_lm, lk_prep, lk_iter, gftt_suppress, raycast_sweep,
+                grid_cast):
         mod.load()
     for lib in libs:
         print(f"  {lib.path.name}: nvcc {lib.build_seconds:.2f} s")
         for line in lib.build_log.splitlines():
             if ("registers" in line or "spill" in line
-                    or ("entry function" in line and lib is libs[4])):
+                    or ("entry function" in line and lib in libs[4:])):
                 print(f"    {line.strip()}")
     print(f"  all built and loaded in {time.perf_counter() - t0:.2f} s")
 
@@ -3533,6 +3921,9 @@ def main() -> None:
               f"frames on {smi}")
         print("K5 phase (the ray cast sweep vs plain torch, on the card):")
         k5 = k5_phase(device, track, refine, smi)
+        print("K6 phase (the grid cast vs plain torch, K5 and the flat "
+              "cast, on the card):")
+        k6 = k6_phase(device, track, refine, k5, smi)
         print("pin phase (find_transformation, config 2):")
         pin_ms, pin_launches, pin_err = pin_phase(device)
         print(f"pin drag {pin_ms:.4f} ms per 8-pin solve on {smi}")
@@ -3558,7 +3949,10 @@ def main() -> None:
     refresh, flat = (k5["scenes"][k] for k in ("config 4 refresh",
                                               "groups of one ray"))
     k5_regs, k5_spills = k5_registers(libs[4].build_log, frame_plan)
-    # No single PyTorch call computes any of the five (library_ms null).
+    k6_regs, k6_spills = kernel_registers(libs[5].build_log, "grid_kernel")
+    k6_frame, k6_refresh = (k6["scenes"][k] for k in ("tracking frame",
+                                                      "config 4 refresh"))
+    # No single PyTorch call computes any of the six (library_ms null).
     # ``launches`` counts the main path's runs (analyze; tracking and the pin
     # drags), ``surface_launches`` the surface phase's gated runs,
     # ``segments_launches`` the gated ``track_segments`` run,
@@ -3676,6 +4070,39 @@ def main() -> None:
         "registers": k5_regs,
         "spill_bytes": k5_spills,
         "frame_step_kernels": k5["frame_step_kernels"],
+        "library_ms": None,
+    }, {
+        "name": "grid_cast",
+        "route": "cuda",
+        "source": "polychase_tpu_torch/csrc/grid_cast.cu",
+        # A kernel of the port alone: the JAX package runs this walk as an
+        # XLA lax.while_loop, not Pallas.
+        "replaces": "polychase_tpu/engine/gridcast.py:212",
+        # launches: the grid module's entry points in the K6 phase (a
+        # tracking frame's grid_raycast_grouped, config 4's refresh through
+        # grid_raycast), counted from 0; cuda_launches: those the library
+        # counted, one a call.  ms, plain_ms and the bound: the recorded
+        # tracking frame (8192 rays, 20,224 triangles), the bound from the
+        # candidate tests and cell actions its walks took; refresh_*:
+        # config 4's recorded refresh; max_abs_err: against grid_plain;
+        # sweep_max_abs_err: t and positions against K5 and the flat cast.
+        "launches": k6["launches"],
+        "cuda_launches": k6["cuda_launches"],
+        "max_abs_err": k6["max_abs_err"],
+        "sweep_max_abs_err": k6["sweep_max_abs_err"],
+        "ms": k6_frame[0],
+        "plain_ms": k6_frame[1],
+        "bound_ms": k6_frame[2][0],
+        "bound_by": k6_frame[2][1],
+        "refresh_ms": k6_refresh[0],
+        "refresh_plain_ms": k6_refresh[1],
+        "refresh_bound_ms": k6_refresh[2][0],
+        "frame_tests": k6_frame[3][0],
+        "frame_cell_actions": k6_frame[3][1],
+        "threads": k6["threads"],
+        "registers": k6_regs,
+        "spill_bytes": k6_spills,
+        "build_ms": k6["build_ms"],
         "library_ms": None,
     }]
     print(f"chip_smoke: every phase passed in "

@@ -4,7 +4,7 @@ Each function takes an object of the JAX package (a ``Mesh``,
 ``Intrinsics``, ``Pose``, ``CameraState``, ``CameraTrajectory``,
 ``BundleOptions``, ``SceneTransformations``, ``LKOptions``,
 ``GFTTOptions``, ``VideoInfo``, ``PyramidCache``, ``PinUpdate``,
-``RefinerData`` or ``TrajParams``) and reads its fields as numpy arrays,
+``RefinerData``, ``TrajParams`` or ``GridAccel``) and reads its fields as numpy arrays,
 so this module never imports jax: anything with the same field names whose
 values ``numpy.asarray`` accepts will do.  The port has no weights;
 this is how the tests put both packages on the same state.
@@ -18,6 +18,7 @@ import torch
 from .backend import as_device
 from .engine import camera as C
 from .engine import gftt as G
+from .engine import gridcast as GC
 from .engine import lk as L
 from .engine import opticalflow as O
 from .engine import pose as P
@@ -147,6 +148,26 @@ def _host(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
     return np.asarray(a)
+
+
+def grid_accel(a, *, device) -> GC.GridAccel:
+    """A uniform grid of the JAX package.  Its per-item rows ``[p1, e1,
+    e2, id + 2**23, 0, 0]`` become the port's per-triangle rows (every
+    triangle has at least one item); the empty mesh's grid keeps one zero
+    row."""
+    device = as_device(device)
+    items = _host(a.items).astype(np.int32)
+    data = _host(a.item_data).astype(np.float32)
+    rows = np.zeros((int(items.max()) + 1, 12), np.float32)
+    rows[items, :9] = data[:, :9]
+    return GC.GridAccel(
+        cell_start=torch.as_tensor(_host(a.cell_start).astype(np.int32),
+                                   device=device),
+        items=torch.as_tensor(items, device=device),
+        tri_rows=torch.as_tensor(rows, device=device),
+        lo=_f32(_host(a.lo), device), h=_f32(_host(a.h), device),
+        res=torch.as_tensor(_host(a.res).astype(np.int32), device=device),
+    )
 
 
 def pyramid(p, *, device) -> L.PyramidCache:

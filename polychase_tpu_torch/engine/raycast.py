@@ -8,7 +8,12 @@ with their own origins), the screen-point → ray helpers, and
 are XLA, not Pallas.  Here all are plain torch but ``raycast_grouped``,
 which on a card is one launch of K5, a kernel of the port
 (``kernels/raycast_sweep.py``); its plain version is :func:`cast_plain`
-(:func:`sweep_plain`, then :func:`hits_plain`).
+(:func:`sweep_plain`, then :func:`hits_plain`).  The flat cast's grid
+route is ``engine/gridcast.py`` (``grid_raycast``, the same N rays with
+their own origins through a uniform grid, exact up to the order of ties;
+on a card one launch of K6, ``kernels/grid_cast.py``), which no caller
+takes yet: the surface's pick and refine's refresh keep this module's
+casts and the host BVH.
 
 Mask semantics match the reference: the closest hit is found over all
 triangles and then dropped if that triangle is masked (masked triangles

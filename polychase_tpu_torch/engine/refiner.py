@@ -354,22 +354,29 @@ def _refresh_routing(mesh: Mesh) -> bool:
     return native.available()
 
 
+def _sweep_cast(mesh: Mesh, origins, dirs):
+    return raycast_grouped(mesh, origins, dirs, check_mask=True)
+
+
 def refresh_prims(params: TrajParams, data: RefinerData, mesh: Mesh,
-                  model_inv) -> torch.Tensor:
+                  model_inv, cast=_sweep_cast) -> torch.Tensor:
     """Ray cast of every (frame, keypoint) ray → prim ids (F, K), -1 where
-    the ray misses, hits a masked triangle or has no keypoint."""
+    the ray misses, hits a masked triangle or has no keypoint.  ``cast(mesh,
+    origins (F, 3), dirs (F, K, 3))`` returns the grouped ``RayHits``: the
+    device sweep, ``raycast_grouped``, unless the caller gives another."""
     with record_function("refine.raycast"):
         origin_o, dir_o = _all_rays(params, data, model_inv)
-        hits = raycast_grouped(mesh, origin_o, dir_o, check_mask=True)
+        hits = cast(mesh, origin_o, dir_o)
         return torch.where(hits.valid & data.kp_valid, hits.prim_id,
                            _INVALID)
 
 
 def refresh_prims_and_cost(params, data: RefinerData, mesh: Mesh, model,
                            model_inv, tri_corners, loss_scale, *,
-                           loss_type: int):
-    """The accepted-step update: the prim refresh and the cost after it."""
-    prims = refresh_prims(params, data, mesh, model_inv)
+                           loss_type: int, cast=_sweep_cast):
+    """The accepted-step update: the prim refresh (by ``cast``, as
+    :func:`refresh_prims` takes it) and the cost after it."""
+    prims = refresh_prims(params, data, mesh, model_inv, cast)
     cost = total_cost(params, data, prims, tri_corners, model, model_inv,
                       loss_scale, loss_type=loss_type)
     return prims, cost
@@ -391,22 +398,16 @@ def _make_prim_refresher(data: RefinerData, mesh: Mesh, model, model_inv,
 
         meshes = [mesh_on(mesh, dev) for dev in devices]  # once per refine
 
-        def refresh(params):
-            with record_function("refine.raycast"):
-                origin_o, dir_o = _all_rays(params, data, model_inv)
-                hits = split_cast(devices, meshes, origin_o, dir_o,
-                                  check_mask=True)
-                prims = torch.where(hits.valid & data.kp_valid, hits.prim_id,
-                                    _INVALID)
-            cost = total_cost(params, data, prims, tri_corners, model,
-                              model_inv, loss_scale, loss_type=loss_type)
-            return prims, cost
-        return refresh
+        def cast(_, origins, dirs):
+            return split_cast(devices, meshes, origins, dirs,
+                              check_mask=True)
+    elif not routing:
+        cast = _sweep_cast
     if not routing:
         def refresh(params):
             return refresh_prims_and_cost(
                 params, data, mesh, model, model_inv, tri_corners,
-                loss_scale, loss_type=loss_type,
+                loss_scale, loss_type=loss_type, cast=cast,
             )
         return refresh
 

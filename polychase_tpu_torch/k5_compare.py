@@ -14,11 +14,12 @@ calls queued behind a device sleep.  The scenes: a tracking frame's shape
 same with 48 rays a group, config 4's prim refresh (250 × 128 rays over
 the 24×32 sphere, 1,472 triangles) and its rays as 32,000 groups of one.
 For each it prints the time and what one call queued and ran on the device
-(``device_work`` of the ``chip_smoke.py`` beside this script, under
+(``device_work`` of the ``timing.py`` beside this script, under
 ``torch.profiler``): the launches, copies and fills, and the kernels by
 name with their times.  Then the digest of config 4's refine truth DB as
 ROOT's ``chip_smoke.refine_inputs`` casts it (through the plain route on
-the card), so that two checkouts can be shown to write the same bits.
+the card in checkouts before the grid cast, on a CPU copy of the mesh
+since), so that two checkouts can be shown to write the same bits.
 ``--plans`` also times ROOT's K5 call (``kernels.raycast_sweep``'s
 ``raycast_hits``, which ROOT must have) at its own launch plan and at
 forced ones (rays a thread × cluster) on the four scenes.  Run it for two
@@ -35,34 +36,18 @@ import sys
 import tempfile
 from pathlib import Path
 
-SLEEP_CYCLES = 40_000_000
 REPS = 20
 
 
-def device_ms(fn, reps=REPS):
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def own_device_work():
-    """``device_work`` of the ``chip_smoke.py`` beside this script, which
-    ROOT's need not have."""
-    here = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("k5_compare_smoke", here)
+def own_timing():
+    """The ``timing`` module beside this script, loaded by its path (it
+    imports nothing of the port), so that every checkout is timed by one
+    harness, whatever ROOT's package holds."""
+    here = Path(__file__).resolve().parent / "timing.py"
+    spec = importlib.util.spec_from_file_location("k5_compare_timing", here)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.device_work
+    return mod
 
 
 def db_digest(path) -> str:
@@ -115,7 +100,8 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}; checkout {root}")
     device = torch.device("cuda")
-    device_work = own_device_work()
+    timing = own_timing()
+    device_work = timing.device_work
     frame = scene(device, 4, 2048, (80, 128))
     k48 = scene(device, 4, 48, (80, 128))
     refresh = scene(device, 250, 128, (24, 32))
@@ -126,7 +112,8 @@ def main() -> None:
     scenes = (("tracking frame", frame), ("tracking frame, K 48", k48),
               ("config 4 refresh", refresh), ("groups of one ray", flat))
     for label, (mesh, o, d) in scenes:
-        whole = device_ms(lambda: R.raycast_grouped(mesh, o, d))
+        whole = timing.event_ms(lambda: R.raycast_grouped(mesh, o, d),
+                                REPS)
         queued, ran, _ = device_work(lambda: R.raycast_grouped(mesh, o, d))
         print(f"  {label} (G {d.shape[0]}, K {d.shape[1]}, T "
               f"{mesh.num_triangles}): raycast_grouped {whole:.4f} ms; one "
@@ -143,7 +130,7 @@ def main() -> None:
             G, K = d.shape[:2]
             chosen = RS.launch_plan(G, K, mesh.num_triangles,
                                     RS._sm_count(device))
-            ms = device_ms(lambda: RS.raycast_hits(*args))
+            ms = timing.event_ms(lambda: RS.raycast_hits(*args), REPS)
             print(f"  {label} at launch_plan's {chosen}: {ms:.4f} ms")
             packed = K < RS.PACKED_BELOW
             for r in (4,) if packed else (2, 4):
@@ -151,12 +138,13 @@ def main() -> None:
                 blocks = -(-G * K // per) if packed else -(-K // per)
                 for c in (1, 2, 4, 8):
                     plan = RS.Plan(r, packed, blocks, c)
-                    ms = device_ms(lambda: RS._launch(*args, plan))
+                    ms = timing.event_ms(lambda: RS._launch(*args, plan),
+                                         REPS)
                     print(f"  {label} at {plan}: {ms:.4f} ms")
     with tempfile.TemporaryDirectory() as workdir:
         refine, _ = cs.refine_inputs(device, workdir)
-        print(f"  config 4's refine truth DB, cast through the plain route "
-              f"on the card: sha256 {db_digest(refine['db'])}")
+        print(f"  config 4's refine truth DB, as ROOT's refine_inputs "
+              f"casts it: sha256 {db_digest(refine['db'])}")
 
 
 if __name__ == "__main__":

@@ -7,19 +7,22 @@ Usage, from the root of a checkout on a machine with a CUDA card:
 
 For each seed, config 4's flow DB (``chip_smoke.refine_inputs``' clip) is
 cast twice by the plain sweep, once from the mesh on the card and once from
-a CPU copy: the same pixels and noise draws, hits that differ in their last
-bits.  Five noisy starts are drawn after each build, as
-``chip_smoke.refine_inputs``' ``noisy`` draws them, and split at
-``chip_smoke.REFINE_KEYS`` (true keyframes) as ``chip_smoke.py``'s segments
-phase splits them; ``refine_segments`` and one ``refine_trajectory`` a
-segment refine them under the default relative function tolerance and,
-for seed 2, with it off (``POLYCHASE_REFINE_FTOL=0``).  One line a case:
-the largest |dt| between the two paths (``chip_smoke.REFINE_SEQ_ATOL`` is
-its gate), each segment's LM iterations in the two paths, and the first
-iteration at which the two paths' accept/reject decisions differ.  Where
-a segment's |dt| is over the gate, the cost history of both paths follows:
-an accepted step whose refreshed cost is higher than the cost before it
-shows a prim that the refresh moved to another triangle.
+a CPU copy (as ``chip_smoke.refine_inputs`` casts it): the same pixels and
+noise draws, hits that differ in their last bits.  Five noisy starts are
+drawn after each build, as ``chip_smoke.refine_inputs``' ``noisy`` draws
+them, and split at ``chip_smoke.REFINE_KEYS`` (true keyframes) as
+``chip_smoke.py``'s segments phase splits them; ``refine_segments`` and one
+``refine_trajectory`` a segment refine them under the default relative
+function tolerance and, for seed 2, with it off
+(``POLYCHASE_REFINE_FTOL=0``).  One line a case: the largest |dt| that
+``chip_smoke.refine_seq_gate`` holds against ``chip_smoke.REFINE_SEQ_ATOL``
+(the two paths' accepted states up to the first refresh whose prims
+differ), the largest |dt| of the refined outputs, each segment's LM
+iterations in the two paths, the refresh at which each segment's prims
+first differ with the share of the valid prims that differ there (held
+against ``chip_smoke.REFINE_SPLIT_SHARE``), and the first iteration at
+which the two paths' accept/reject decisions differ.  Where a segment's
+held |dt| is over the gate, the cost history of both paths follows.
 """
 
 from __future__ import annotations
@@ -42,6 +45,15 @@ def _first_split(a, b):
         if (a[i] != a[i - 1]) != (b[i] != b[i - 1]):
             return i
     return None
+
+
+def _split(split, moved, cs):
+    """A segment's first refresh whose prims differ and the share of the
+    valid prims that differ there, marked where the gate refuses it."""
+    if split is None:
+        return "-"
+    over = split == 0 or moved > cs.REFINE_SPLIT_SHARE
+    return f"{split} ({moved:.3g}{' > gate' if over else ''})"
 
 
 def main() -> None:
@@ -96,7 +108,7 @@ def main() -> None:
         mesh = Mesh.create(verts, tris, device=device)
         poses = orbit_poses(cs.REFINE_FRAMES)
         path = os.path.join(workdir, f"refine-{seed}-{cast}.db")
-        with cs.plain_route():
+        with cs.plain_route():  # K5 set aside: the card's plain route
             build_flow_db(path, mesh if cast == "card" else
                           Mesh.create(verts, tris, device="cpu"), cs.FOCAL,
                           cs.WIDTH, cs.HEIGHT, poses, rng,
@@ -122,29 +134,35 @@ def main() -> None:
     def case(path, mesh, poses, start):
         history.clear()
         segs = segments(poses, start)
-        out = refine_segments(path, segs, eye, mesh,
-                              optimize_focal_length=True, bundle_opts=opts,
-                              device=device)
-        lock = np.stack(history)  # (iterations + 1, segments, 8)
-        rows = []
-        for k, traj in enumerate(segments(poses, start)):
-            seq = []
-            R.refine_trajectory(
-                path, traj, eye, mesh, optimize_focal_length=True,
-                bundle_opts=opts, device=device,
-                callback=lambda u: seq.append(
-                    (int(u.stats.iterations), float(u.stats.initial_cost),
-                     float(u.stats.cost))) or True)
-            a, b = bounds[k]
-            dt = max(float(np.abs(out[k].get(f).pose.t.numpy()
-                                  - traj.get(f).pose.t.numpy()).max())
-                     for f in range(a, b + 1))
-            # Both histories as the start's cost and the cost after each
-            # iteration (a sequential update reports the iteration's cost).
-            costs_s = [seq[0][1]] + list({i: c for i, _, c in seq}.values())
-            costs_l = [float(c) for c in lock[:, k, 0]]
-            rows.append((dt, costs_l, costs_s, int(lock[-1, k, 6]),
-                         seq[-1][0]))
+        with cs.refine_records() as (lock_states, seq_states):
+            out = refine_segments(path, segs, eye, mesh,
+                                  optimize_focal_length=True,
+                                  bundle_opts=opts, device=device)
+            lock = np.stack(history)  # (iterations + 1, segments, 8)
+            rows = []
+            for k, traj in enumerate(segments(poses, start)):
+                seq = []
+                R.refine_trajectory(
+                    path, traj, eye, mesh, optimize_focal_length=True,
+                    bundle_opts=opts, device=device,
+                    callback=lambda u: seq.append(
+                        (int(u.stats.iterations),
+                         float(u.stats.initial_cost),
+                         float(u.stats.cost))) or True)
+                a, b = bounds[k]
+                dt = max(float(np.abs(out[k].get(f).pose.t.numpy()
+                                      - traj.get(f).pose.t.numpy()).max())
+                         for f in range(a, b + 1))
+                held, split, moved, _, _ = cs.refine_seq_gate(
+                    lock_states[0][k], seq_states[k])
+                # Both histories as the start's cost and the cost after
+                # each iteration (a sequential update reports the
+                # iteration's cost).
+                costs_s = ([seq[0][1]]
+                           + list({i: c for i, _, c in seq}.values()))
+                costs_l = [float(c) for c in lock[:, k, 0]]
+                rows.append((held, dt, split, costs_l, costs_s,
+                             int(lock[-1, k, 6]), seq[-1][0], moved))
         return rows
 
     with tempfile.TemporaryDirectory() as workdir:
@@ -155,14 +173,20 @@ def main() -> None:
                     for ftol in (("1e-5", "0") if seed == 2 else ("1e-5",)):
                         os.environ["POLYCHASE_REFINE_FTOL"] = ftol
                         rows = case(path, mesh, poses, start)
-                        dt = max(r[0] for r in rows)
-                        its = " ".join(f"{r[3]}/{r[4]}" for r in rows)
+                        held = max(r[0] for r in rows)
+                        dt = max(r[1] for r in rows)
+                        its = " ".join(f"{r[5]}/{r[6]}" for r in rows)
+                        splits = " ".join(_split(r[2], r[7], cs)
+                                          for r in rows)
                         print(f"seed {seed}, DB cast on the {cast}, start {i}, "
-                              f"ftol {ftol}: max |dt| {dt:.3g}"
-                              f"{' > gate' if dt > cs.REFINE_SEQ_ATOL else ''}"
-                              f"; segments' iterations (lockstep / "
-                              f"sequential) {its}", flush=True)
-                        for k, (d, cl, cseq, _, _) in enumerate(rows):
+                              f"ftol {ftol}: held |dt| {held:.3g}"
+                              f"{' > gate' if held > cs.REFINE_SEQ_ATOL else ''}"
+                              f", outputs' |dt| {dt:.3g}; segments' "
+                              f"iterations (lockstep / sequential) {its}; "
+                              f"prims first differ at refresh {splits}",
+                              flush=True)
+                        for k, (d, _, _, cl, cseq, _, _, _) in enumerate(
+                                rows):
                             if d <= cs.REFINE_SEQ_ATOL:
                                 continue
                             print(f"  segment {k}: |dt| {d:.3g}, decisions "

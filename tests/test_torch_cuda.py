@@ -1,23 +1,19 @@
 """K1 (csrc/pnp_lm.cu), K2 (csrc/lk_prep.cu), K3 (csrc/lk_iter.cu), K4
-(csrc/gftt_suppress.cu) and K5 (csrc/raycast_sweep.cu) against their plain
-torch versions on a CUDA card, GFTT's device route against its host route
-and the chained skip fan's K2 and K3 launches (on one card and split by
-features), refine and pin mode on the card against the same work on the
-CPU, the segment-parallel track (one K1 and one K5 launch a step for every
-segment), the sharded analyze and refine (two shards on one card, or every
-card), K1-K3 and K5 on a card other than the current one, K5's failures
-raising, and the ``polychase_core`` threads with no device argument on the
-card.
+(csrc/gftt_suppress.cu), K5 (csrc/raycast_sweep.cu) and K6
+(csrc/grid_cast.cu) against their plain torch versions on a CUDA card,
+GFTT's device route against its host route and the chained skip fan's K2
+and K3 launches (on one card and split by features), refine and pin mode
+on the card against the same work on the CPU, the segment-parallel track
+(one K1 and one K5 launch a step for every segment), the sharded analyze
+and refine (two shards on one card, or every card), K1-K3, K5 and K6 on a
+card other than the current one, K5's and K6's failures raising, and the
+``polychase_core`` threads with no device argument on the card.
 
 These tests need the card and skip elsewhere.  The file imports no jax, so
 it runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
-
-import importlib.util
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1089,18 +1085,12 @@ def _same_hits(got, want):
 
 
 def _device_work(fn):
-    """``chip_smoke.device_work`` on ``fn``: the CUDA runtime's launches,
+    """``timing.device_work`` on ``fn``: the CUDA runtime's launches,
     copies and fills it queued, the device's kernels it ran (which the
     profiler may miss in a window this short), and what it returned."""
-    smoke = sys.modules.get("chip_smoke")
-    if smoke is None:
-        spec = importlib.util.spec_from_file_location(
-            "chip_smoke", Path(__file__).resolve().parents[1] /
-            "chip_smoke.py")
-        smoke = importlib.util.module_from_spec(spec)
-        sys.modules["chip_smoke"] = smoke
-        spec.loader.exec_module(smoke)
-    return smoke.device_work(fn)
+    from polychase_tpu_torch.timing import device_work
+
+    return device_work(fn)
 
 
 @pytest.mark.parametrize("kind,G,K,sphere", K5_CASES)
@@ -1220,3 +1210,160 @@ def test_raycast_sweep_failures_raise(card, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         R.raycast_grouped(mesh, o, d)
     assert RS.launches == before[0]
+
+
+# ---------------------------------------------------------------------------
+# K6 (the grid cast)
+# ---------------------------------------------------------------------------
+
+
+def _k6_scene(card, kind, n, seed=0):
+    """A mesh on the card, its grid and ``n`` rays: from distance 4 around a
+    UV sphere (24×32; 80×128 for ``frame``; 40 triangles masked for
+    ``masked``), a soup of 2,000 triangles, axis-aligned rays from inside
+    and outside the sphere, a huge ground triangle under the sphere, or an
+    empty mesh."""
+    from polychase_tpu_torch.engine.geometry import (
+        Mesh, mask_array_size, set_mask_bits,
+    )
+    from polychase_tpu_torch.engine.gridcast import build_grid_accel
+    from polychase_tpu_torch.synthetic import uv_sphere
+
+    rng = np.random.default_rng(seed)
+    verts, tris = uv_sphere(*((80, 128) if kind == "frame" else (24, 32)))
+    words = None
+    if kind == "masked":
+        words = np.zeros(mask_array_size(len(tris)), np.uint32)
+        for i in rng.choice(len(tris), 40, replace=False):
+            words = set_mask_bits(words, int(i), "mask")
+    if kind == "soup":
+        centers = rng.uniform(-2, 2, (2000, 1, 3))
+        verts = (centers + rng.normal(0, 0.2, (2000, 3, 3))).reshape(-1, 3)
+        tris = np.arange(6000).reshape(-1, 3)
+    if kind == "huge":
+        verts = np.concatenate([verts, [[-50, -50, -2], [50, -50, -2],
+                                        [0, 80, -2]]])
+        tris = np.concatenate([tris, [[len(verts) - 3, len(verts) - 2,
+                                       len(verts) - 1]]])
+    if kind == "empty":
+        verts, tris = np.zeros((0, 3)), np.zeros((0, 3))
+    o = rng.normal(size=(n, 3))
+    o = 4 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = rng.normal(0, 0.7, (n, 3)) - o
+    if kind == "axis":
+        o = np.concatenate([rng.uniform(-0.5, 0.5, (n // 2, 3)),
+                            rng.uniform(-3, 3, (n - n // 2, 3))])
+        d = np.concatenate([np.eye(3), -np.eye(3)])[rng.integers(0, 6, n)]
+    if kind == "huge":
+        d[: n // 4] = [0.1, 0.05, -1.0]
+    mesh = Mesh.create(verts, tris, words, device=card)
+    accel = build_grid_accel(verts, tris, device=card)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa: E731
+                                    device=card)
+    return mesh, accel, f32(o), f32(d)
+
+
+K6_CASES = [("plain", 2000, {}), ("frame", 8192, {}), ("masked", 3000, {}),
+            ("masked", 3000, dict(check_mask=False)), ("soup", 4096, {}),
+            ("axis", 2048, {}), ("huge", 2048, {}), ("empty", 256, {}),
+            ("plain", 2000, dict(max_iters=1)),
+            ("frame", 8192, dict(max_iters=8)),
+            ("plain", 2000, dict(block=1)), ("plain", 100, dict(block=2))]
+
+
+@pytest.mark.parametrize("kind,n,kw", K6_CASES)
+def test_grid_cast_matches_plain(card, kind, n, kw):
+    """K6 against its plain version (``grid_plain``, the reference's
+    lockstep loop in torch) on the card: every field of the hits to the
+    bit, one launch a call, counted by the wrapper and by the library."""
+    from polychase_tpu_torch.engine.gridcast import grid_plain
+    from polychase_tpu_torch.kernels import grid_cast as GK
+
+    mesh, accel, o, d = _k6_scene(card, kind, n)
+    arrays = (mesh.vertices, mesh.triangles, mesh.masked_triangles)
+    before = (GK.launches, GK.cuda_launches())
+    got = GK.grid_hits(o, d, accel, *arrays, **kw)
+    assert (GK.launches, GK.cuda_launches()) == tuple(b + 1 for b in before)
+    want = grid_plain(o, d, accel, *arrays, **kw)
+    for f in ("pos", "normal", "barycentric", "t", "prim_id", "valid"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    if kind == "empty":
+        assert not bool(got.valid.any())
+    elif kw.get("max_iters") != 1:
+        assert got.valid.float().mean() > 0.2
+
+
+def test_grid_raycast_grouped_launches_k6(card):
+    """``grid_raycast_grouped`` on the card's tensors is one launch of K6,
+    its hits those of ``grid_raycast`` on the flat rays."""
+    from polychase_tpu_torch.engine import gridcast as GC
+    from polychase_tpu_torch.kernels import grid_cast as GK
+
+    mesh, accel, o, d = _k6_scene(card, "plain", 512)
+    origins, dirs = o[:4], d.reshape(4, 128, 3)
+    before = GK.launches
+    grouped = GC.grid_raycast_grouped(mesh, accel, origins, dirs)
+    flat = GC.grid_raycast(mesh, accel,
+                           origins[:, None].expand(4, 128, 3), dirs)
+    assert GK.launches == before + 2
+    assert grouped.t.shape == (4, 128)
+    for f in ("pos", "normal", "barycentric", "t", "prim_id", "valid"):
+        assert torch.equal(getattr(grouped, f).reshape(getattr(flat, f).shape),
+                           getattr(flat, f)), f
+
+
+def test_grid_cast_launches_on_its_tensors_card(card):
+    """K6 on card 1's tensors, launched while card 0 is current, equals the
+    same call on card 0 to the bit."""
+    from polychase_tpu_torch.kernels import grid_cast as GK
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    c1 = torch.device("cuda", 1)
+    mesh, accel, o, d = _k6_scene(torch.device("cuda", 0), "plain", 1000)
+    arrays = (mesh.vertices, mesh.triangles, mesh.masked_triangles)
+    with torch.cuda.device(0):
+        before = GK.launches
+        ref = GK.grid_hits(o, d, accel, *arrays)
+        got = GK.grid_hits(o.to(c1), d.to(c1), accel.to(c1),
+                           *(a.to(c1) for a in arrays))
+        assert GK.launches == before + 2
+        torch.cuda.synchronize(c1)
+    for f in ("pos", "normal", "barycentric", "t", "prim_id", "valid"):
+        a, b = getattr(got, f), getattr(ref, f)
+        assert a.device == c1
+        torch.testing.assert_close(a.cpu(), b.cpu(), rtol=0, atol=0)
+
+
+def test_grid_cast_failures_raise(card, monkeypatch):
+    """No fallback to the plain version: a failed build raises from
+    ``grid_raycast``, a launch the library refuses raises with no launch
+    counted, and inputs the kernel does not take raise ValueError."""
+    from polychase_tpu_torch.engine import gridcast as GC
+    from polychase_tpu_torch.kernels import build
+    from polychase_tpu_torch.kernels import grid_cast as GK
+
+    mesh, accel, o, d = _k6_scene(card, "plain", 256)
+    arrays = (mesh.vertices, mesh.triangles, mesh.masked_triangles)
+    GK.grid_hits(o, d, accel, *arrays)  # builds and loads the library
+    before = (GK.launches, GK.cuda_launches())
+    with monkeypatch.context() as m:
+        m.setattr(GK, "block_threads", lambda n, sms: 48)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            GK.grid_hits(o, d, accel, *arrays)
+    assert (GK.launches, GK.cuda_launches()) == before
+    for bad in ((o, d.double()), (o, d.cpu()), (o[:10], d)):
+        with pytest.raises(ValueError):
+            GK.grid_hits(*bad, accel, *arrays)
+    with pytest.raises(ValueError):
+        GK.grid_hits(o, d, accel.to("cpu"), *arrays)
+    with pytest.raises(ValueError):
+        GK.grid_hits(o, d, accel, arrays[0], arrays[1].int(), arrays[2])
+
+    def broken(*a, **kw):
+        raise RuntimeError("nvcc failed on grid_cast.cu")
+
+    monkeypatch.setattr(build, "load", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        GC.grid_raycast(mesh, accel, o, d)
+    assert GK.launches == before[0]

@@ -1,5 +1,6 @@
 """The port runs with jax and the JAX package unimportable: a tiny track
-(with K5's wrapper, ``kernels.raycast_sweep``, imported), a tiny analyze, a
+(with K5's wrapper, ``kernels.raycast_sweep``, imported) and a grid cast
+(K6's wrapper, ``kernels.grid_cast``, imported), a tiny analyze, a
 tiny refine followed by a pin drag, the tracker and optical-flow threads of
 its ``polychase_core``, the segment-parallel
 track and refine (the refine through ``RefineSegmentsThread``) with the
@@ -85,6 +86,20 @@ SCRIPT = REFUSE_JAX + textwrap.dedent(
     for r in got:
         dt = np.linalg.norm(r.pose.t.numpy() - poses[r.frame][1])
         assert dt < 5e-3, (r.frame, dt)
+    # The grid cast (K6's wrapper imported, the plain version on the CPU).
+    from polychase_tpu_torch.engine.gridcast import (
+        build_grid_accel, grid_raycast,
+    )
+    from polychase_tpu_torch.engine.raycast import raycast
+    from polychase_tpu_torch.kernels import grid_cast
+
+    assert callable(grid_cast.grid_hits)
+    o = torch.tensor([[0.0, 0.0, 4.0], [0.0, 4.0, 0.1]])
+    d = torch.tensor([[0.05, 0.02, -1.0], [0.01, -1.0, 0.0]])
+    hits = grid_raycast(mesh, build_grid_accel(verts, tris, device=dev), o,
+                        d)
+    assert hits.valid.all()
+    assert torch.equal(hits.prim_id, raycast(mesh, o, d).prim_id)
     assert_nothing_leaked()
     print("tracked", len(got), "frames without jax")
     """

@@ -20,7 +20,7 @@ from test_torch_nojax import REFUSE_JAX
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CUDA_SOURCES = ["pnp_lm.cu", "lk_prep.cu", "lk_iter.cu", "gftt_suppress.cu",
-                "raycast_sweep.cu"]
+                "raycast_sweep.cu", "grid_cast.cu"]
 SCRIPTS = {
     "polychase-torch-generate-database":
         "polychase_tpu_torch.cli.generate_database:main",

@@ -1,5 +1,6 @@
-"""The port's compare tools (``polychase_tpu_torch/*_compare.py``) run only on
-a CUDA card, so no test runs them; these tests read each tool's source and
+"""The port's compare tools (``polychase_tpu_torch/*_compare.py``) and its
+route tables (``polychase_tpu_torch/crossover.py``) run only on a CUDA
+card, so no test runs them; these tests read each tool's source and
 check that every name it imports from ``chip_smoke.py`` or the port, and
 every attribute it takes from a module it imported, exists on the CPU.  A
 rename in ``chip_smoke.py`` or the port that a tool missed fails here.
@@ -18,7 +19,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = "polychase_tpu_torch"
-TOOLS = sorted(p.stem for p in (ROOT / PACKAGE).glob("*_compare.py"))
+TOOLS = sorted([p.stem for p in (ROOT / PACKAGE).glob("*_compare.py")]
+               + ["crossover"])
 
 
 def _chip_smoke() -> types.ModuleType:
@@ -73,7 +75,7 @@ def _fallbacks(tree: ast.AST) -> set:
 
 
 def test_the_tools_are_found():
-    assert {"k1_compare", "k5_compare", "refine_compare",
+    assert {"crossover", "k1_compare", "k5_compare", "refine_compare",
             "segments_compare"} <= set(TOOLS)
 
 
