@@ -86,24 +86,27 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    of one tracking frame's ``raycast_grouped`` (K5 alone), forward
    tracking frames/s with K5 and with the plain route, in turns, and a
    profiled K5 run's busy share and device time by kernel.
-9. K6 phase: K6, the whole ``grid_raycast`` in one launch (a thread
-   walking each ray's cells), against its plain version
+9. K6 phase: K6, the whole ``grid_raycast`` in one launch (a team of
+   lanes walking each ray's cells), against its plain version
    (``engine.gridcast.grid_plain``, the reference's lockstep loop in
-   torch) on the card, on eight scenes: the recorded tracking frame (4 ×
+   torch) on the card, on nine scenes: the recorded tracking frame (4 ×
    2048 rays, 20,224 triangles) and config 4's refresh (250 × 128 rays,
    1,472 triangles) as flat rays, those rays on the sphere with 40
    triangles masked, a soup of 20,000 triangles, axis-aligned rays from
    inside and outside the tracking mesh, a huge triangle that coarsens the
-   grid, an empty mesh, and the tracking frame cut at ``max_iters`` 8.
-   Every field of the hits equal to the bit, one launch a call counted by
-   the wrapper and the library; then, but for the cut and the empty
-   scenes, against K5 and the flat ``raycast`` (plain torch) with the
-   mask on and off: ``valid`` and ids equal but on exact-t ties and on
-   rays through a triangle's edge (a hit within 1e-5 of it in u, v or
-   1 - u - v), t and positions within 1e-4 (tests/test_gridcast.py's
-   tolerance: the casts test in different Möller-Trumbore forms).  Prints per scene both
-   times, the bound (from the tests and cell actions the plain version
-   counts) and its share, the grid and the walks' work; the grid module's
+   grid, an empty mesh, the tracking frame cut at ``max_iters`` 8, and the
+   tracking frame's rays on a UV sphere of 1,998,000 triangles
+   (``crossover``'s largest mesh).  Every field of the hits equal to the
+   bit, one launch a call counted by the wrapper and the library; then,
+   but for the cut, the empty and the large scenes, against K5 and the
+   flat ``raycast`` (plain torch) with the mask on and off: ``valid`` and
+   ids equal but on exact-t ties and on rays through a triangle's edge (a
+   hit within 1e-5 of it in u, v or 1 - u - v), t and positions within
+   1e-4 (tests/test_gridcast.py's tolerance: the casts test in different
+   Möller-Trumbore forms).  Prints per scene both times, the bound (the
+   grid's entries, tests and cell actions the plain version counts its
+   walks reading and taking) and its share, the grid and the walks' work;
+   the grid module's
    entry points (``build_grid_accel``, ``grid_raycast_grouped`` on a
    tracking frame, ``grid_raycast`` on config 4's refresh) with K6's
    launches counted from 0; the builds' host times; K6 against K5 on
@@ -172,11 +175,13 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     largest entry), the prims of refine's split refresh and of
     ``sharded_raycast_flat`` equal to ``refresh_prims``', each cast timed,
     the per-rebuild copy of a partial JᵀJ timed between two cards, refine's
-    gates, and against the one-device refine the same iterations, the final
-    cost within 1e-4 (relative) and every pose within 1e-4 rad and 1e-4.
-    The refine here reads config 4's clip cast by the plain route on the
-    card (``refine_inputs``' ``card_db``), the data this phase had before
-    the truth moved to the host.
+    gates, and against the one-device refine (both refines' accepted
+    states recorded, ``refine_records``): each accepted state in t within
+    1e-4 up to and with the first refresh whose prims differ
+    (``refine_seq_gate``), which must not be the start state nor differ in
+    more than 1e-3 of the valid prims; where the prims never part, the
+    same iterations, the final cost within 1e-4 (relative) and every pose
+    within 1e-4 rad and 1e-4.  It prints which of the two held.
     Then analyze frames/s and refine seconds, one device against the list,
     in turns (one, list, list, one).
 14. Analyze-routes phase: K4 against its plain version
@@ -230,7 +235,7 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     reads' times and its floor, for K5 config 4's refresh times, the
     groups of one ray's, the frame's launch plan, registers and spills, and
     its cast's device kernels, for K6 the launches of the grid module's
-    entry points, the refresh times, the threads a block, registers,
+    entry points, the refresh times, the frame's lanes a ray, registers,
     spills, the grid's build and the difference from K5 and the flat
     cast, largest difference)
     and, last, ``{"ok": true, ...}``.
@@ -1269,17 +1274,8 @@ def refine_inputs(device, workdir, *, n_frames=REFINE_FRAMES,
     # are, so that the truth passes through no card's rounding.
     build_flow_db(db_path, Mesh.create(verts, tris, device=CPU), FOCAL,
                   WIDTH, HEIGHT, poses, rng, keypoints, NOISE_PX)
-
-    def card_db(path):
-        """The same clip's DB (the same draws) cast by the plain route on
-        the card, as the truth was cast before it moved to the host: the
-        sharded phase's data (module docstring, item 13)."""
-        with plain_route():
-            build_flow_db(path, mesh, FOCAL, WIDTH, HEIGHT, poses,
-                          np.random.default_rng(seed), keypoints, NOISE_PX)
-        return path
-    return dict(db=db_path, card_db=card_db, verts=verts, tris=tris,
-                poses=poses, noisy=noisy), mesh
+    return dict(db=db_path, verts=verts, tris=tris, poses=poses,
+                noisy=noisy), mesh
 
 
 def refine_phase(device, workdir, **size):
@@ -1652,11 +1648,16 @@ K6_SWEEP_TOL = 1e-4
 # on either side of it, or into neither neighbour, in another test form.
 K6_EDGE = 1e-5
 K6_SMALL_ITERS = 8
+# The K6 phase's large mesh: crossover's largest, 1,998,000 triangles, the
+# cell candidates' tail (up to 5,524 in a pole cell) in reach of one ray.
+K6_LARGE = (1000, 1000)
 
 
-def k6_bound(n, accel, mesh, found, valid, check_mask, tests, steps):
-    """K6 on ``n`` rays: the grid (``cell_start``, ``items``, the 48-byte
-    triangle rows) and the rays read once; of the mesh, what the hits need
+def k6_bound(n, mesh, found, valid, check_mask, tests, steps, reads):
+    """K6 on ``n`` rays: of the grid, what this run's walks read, each
+    once (``reads``, counted by ``grid_plain_counted``: the ``cell_start``
+    entries of the cells visited, the ``items`` slots and the 48-byte
+    triangle rows tested), and the rays; of the mesh, what the hits need
     read once: the mask word of each distinct closest triangle (``found``,
     before the mask test) where the mask is checked, and the indices (24
     bytes) and corners (12 bytes a vertex) of each distinct triangle hit
@@ -1669,8 +1670,7 @@ def k6_bound(n, accel, mesh, found, valid, check_mask, tests, steps):
     corners = torch.unique(mesh.triangles[hit])
     words = (torch.unique(found[found != INVALID_ID] >> 5).numel()
              if check_mask else 0)
-    nbytes = (4 * (accel.cell_start.numel() + accel.items.numel()
-                   + accel.tri_rows.numel())
+    nbytes = (4 * (reads.cell_start + reads.items) + 48 * reads.rows
               + 24 * hit.numel() + 12 * corners.numel() + 8 * words
               + n * (24 + 45))
     return bound_ms(nbytes, tests * K6_OPS_TEST + steps * K6_OPS_STEP
@@ -1684,7 +1684,8 @@ def k6_check(label, mesh, accel, o, d, plain_reps=1, **kw):
     work.  Returns (failures, K6's hits, the largest difference in
     position, normal or barycentrics, kernel ms, plain ms, (bound ms, what
     bounds it), (tests, cell actions, lockstep iterations))."""
-    from polychase_tpu_torch.engine.gridcast import grid_plain_counted
+    from polychase_tpu_torch.engine.gridcast import (grid_plain,
+                                                     grid_plain_counted)
     from polychase_tpu_torch.kernels import grid_cast
 
     arrays = (mesh.vertices, mesh.triangles, mesh.masked_triangles)
@@ -1693,8 +1694,10 @@ def k6_check(label, mesh, accel, o, d, plain_reps=1, **kw):
     got = grid_cast.grid_hits(o, d, accel, *arrays, **kw)
     launched = (grid_cast.launches - before[0],
                 grid_cast.cuda_launches() - before[1])
-    want, tests, steps, its, found = grid_plain_counted(o, d, accel, *arrays,
+    want, walks, its, found, reads = grid_plain_counted(o, d, accel, *arrays,
                                                         **kw)
+    tests = int(walks.tests.sum())
+    steps = int((walks.empty + walks.full).sum())
     torch.cuda.synchronize()
     fails = []
     if launched != (1, 1):
@@ -1709,15 +1712,15 @@ def k6_check(label, mesh, accel, o, d, plain_reps=1, **kw):
     max_err = max([float((getattr(got, f) - getattr(want, f)).abs().max())
                    for f in ("pos", "normal", "barycentric") if n] + [0.0])
     ms = event_ms(lambda: grid_cast.grid_hits(o, d, accel, *arrays, **kw), 20)
-    plain = event_ms(lambda: grid_plain_counted(o, d, accel, *arrays, **kw),
+    plain = event_ms(lambda: grid_plain(o, d, accel, *arrays, **kw),
                      plain_reps)
-    bound = k6_bound(n, accel, mesh, found, want.valid,
-                     kw.get("check_mask", True), tests, steps)
+    bound = k6_bound(n, mesh, found, want.valid, kw.get("check_mask", True),
+                     tests, steps, reads)
     res = accel.res.tolist()
-    threads = grid_cast.block_threads(n, grid_cast._sm_count(o.device))
     print(f"  {label} (N {n}, T {mesh.num_triangles}, grid {res}, "
-          f"{accel.items.shape[0]} items, {kw or 'defaults'}; {threads} "
-          f"threads a block): every field equal to grid_plain's: "
+          f"{accel.items.shape[0]} items, cell load {accel.cell_load:.2f}, "
+          f"{kw or 'defaults'}; {grid_cast.team_width(accel)} lanes a "
+          f"ray): every field equal to grid_plain's: "
           f"{not fails}, {int(want.valid.sum())} hits; {tests} tests, "
           f"{steps} cell actions, {its} lockstep iterations; K6 {ms:.4f} "
           f"ms, plain {plain:.4f} ms; bound {bound[0]:.6f} ms "
@@ -1816,6 +1819,7 @@ def k6_phase(device, track, refine, k5, smi):
     ho, hd = from_sphere(4096, 8.0, 0.8)
     hd[:1024] = [0.1, 0.05, -1.0]
     empty = Mesh.create(np.zeros((0, 3)), np.zeros((0, 3)), device=device)
+    large = Mesh.create(*uv_sphere(*K6_LARGE), device=device)
 
     grids, build_ms = {}, {}
 
@@ -1839,6 +1843,8 @@ def k6_phase(device, track, refine, k5, smi):
         ("empty mesh", empty, (dev(ho[:1024]), dev(hd[:1024])), None, {}),
         (f"max_iters {K6_SMALL_ITERS}", tmesh, flat(*frame[:2]), None,
          dict(max_iters=K6_SMALL_ITERS)),
+        (f"{large.num_triangles:,} triangles", large, flat(*frame[:2]), None,
+         {}),
     ]
     fails, max_err, sweep_err, results = [], 0.0, 0.0, {}
     for label, mesh, (o, d), grouped, kw in scenes:
@@ -1848,7 +1854,7 @@ def k6_phase(device, track, refine, k5, smi):
         fails += f
         max_err = max(max_err, err)
         results[label] = (ms, plain, bound, work)
-        if kw or not mesh.num_triangles:
+        if kw or mesh is empty or mesh is large:
             if not mesh.num_triangles and bool(got.valid.any()):
                 fails.append("a ray hit the empty mesh")
             continue
@@ -1905,9 +1911,8 @@ def k6_phase(device, track, refine, k5, smi):
           f"against K5 {k5_frame:.4f} ms on {smi}")
     return dict(launches=launches, cuda_launches=cuda, scenes=results,
                 max_abs_err=max_err, sweep_max_abs_err=sweep_err,
-                threads=grid_cast.block_threads(
-                    frame[1].shape[0] * frame[1].shape[1],
-                    grid_cast._sm_count(device)),
+                large=results[f"{large.num_triangles:,} triangles"],
+                team=grid_cast.team_width(grids[id(tmesh)]),
                 build_ms=build_ms["tracking frame"])
 
 
@@ -2717,14 +2722,19 @@ def segments_phase(device, track, refine, smi):
 SHARD_POS_ATOL = 1e-4
 # The sharded normal equations (tests/test_sharded.py:67-78).
 SHARD_JTJ_RTOL, SHARD_JTJ_ATOL = 1e-3, 1e-5
-# The sharded refine against the one-device refine: the same iterations,
-# the final cost within this relative difference and every pose within
-# this many rad and scene units. The two differ only in the order the
-# normal equations are summed (poses 5.25e-6 apart on an H100 80GB HBM3,
-# two shards on one card).  On config 4's DB cast on the card; on the one
-# cast on the host the two refines accept the same 4 steps, their prims
-# part at the last refresh and one stops an iteration later (4 against 5),
-# which this gate does not allow for (ROADMAP, Queue 3).
+# The sharded refine against the one-device refine.  The two differ only
+# in the order the normal equations are summed, so their steps differ by
+# rounding (poses 5.25e-6 apart on an H100 80GB HBM3, two shards on one
+# card) until a refresh moves a prim across a triangle's edge in one and
+# not the other; from there they refine different problems and their LM
+# decisions may part (on config 4's DB, refresh 4: 4 against 5
+# iterations).  So they are held as the segments phase holds
+# refine_segments (refine_seq_gate): every accepted state in t within
+# SHARD_POSE up to and with the first refresh whose prims differ, that
+# refresh never the start state and at most REFINE_SPLIT_SHARE of the
+# valid prims differing there.  Where the prims never part: the same
+# iterations, the final cost within SHARD_COST_RTOL (relative) and every
+# pose within SHARD_POSE rad and scene units.
 SHARD_COST_RTOL = 1e-4
 SHARD_POSE = 1e-4
 
@@ -2904,8 +2914,8 @@ def sharded_phase(device, frames, analyze_db, refine, smi):
         print("  a solve's levels to the other shard: none, both shards are "
               f"on {devices[0]} (not measured)")
 
-    # Refine, config 4, over the devices, on the clip cast on the card.
-    refine_db = refine["card_db"](os.path.join(workdir, "refine_card.db"))
+    # Refine, config 4, over the devices.
+    refine_db = refine["db"]
     poses = refine["poses"]
     nf = len(poses)
     mesh = Mesh.create(refine["verts"], refine["tris"], device=device)
@@ -3008,8 +3018,13 @@ def sharded_phase(device, frames, analyze_db, refine, smi):
               f"bytes): none, both shards are on {devices[0]} (not measured)")
 
     updates, one_updates = [], []
-    split, _ = refined(devices, lambda u: updates.append(u) or True)
-    one, _ = refined(device, lambda u: one_updates.append(u) or True)
+    with refine_records() as (_, seq_states):
+        split, _ = refined(devices, lambda u: updates.append(u) or True)
+        one, _ = refined(device, lambda u: one_updates.append(u) or True)
+    if len(seq_states) != 2:
+        raise AssertionError(f"sharded: recorded {len(seq_states)} refines, "
+                             f"want 2")
+    held, part, moved, n_split, n_one = refine_seq_gate(*seq_states)
 
     def state(i):
         s = split.get(i)
@@ -3034,17 +3049,29 @@ def sharded_phase(device, frames, analyze_db, refine, smi):
     dt = max(float(np.linalg.norm(split.get(i).pose.t.numpy()
                                   - one.get(i).pose.t.numpy()))
              for i in range(nf))
-    print(f"  against the one-device refine: max rot {drot:.3g} rad, max "
-          f"|dt| {dt:.3g}")
-    if iters[0] != iters[1]:
-        fails.append(f"the sharded refine took {iters[0]} iterations, the "
-                     f"one-device refine {iters[1]}")
-    if dcost > SHARD_COST_RTOL:
-        fails.append(f"the sharded refine's final cost differs from the "
-                     f"one-device refine's by {dcost:.3g} (relative)")
-    if drot > SHARD_POSE or dt > SHARD_POSE:
-        fails.append(f"the sharded refine differs from the one-device "
-                     f"refine by {drot:.3g} rad / {dt:.3g}")
+    print(f"  against the one-device refine: accepted steps {n_split} / "
+          f"{n_one}; max rot {drot:.3g} rad, max |dt| {dt:.3g} at the end; "
+          + ("the prims never part: held to the same iterations, the cost "
+             f"within {SHARD_COST_RTOL} and the poses within {SHARD_POSE}"
+             if part is None else
+             f"the prims part at refresh {part} ({moved:.3g} of them): held "
+             f"by accepted state up to it")
+          + f", |dt| {held:.3g} up to it")
+    if held > SHARD_POSE:
+        fails.append(f"the sharded refine's accepted states differ from the "
+                     f"one-device refine's by {held:.3g} in t")
+    if part is not None:
+        fails += refine_split_fails("the sharded refine", part, moved)
+    else:
+        if iters[0] != iters[1]:
+            fails.append(f"the sharded refine took {iters[0]} iterations, "
+                         f"the one-device refine {iters[1]}")
+        if dcost > SHARD_COST_RTOL:
+            fails.append(f"the sharded refine's final cost differs from the "
+                         f"one-device refine's by {dcost:.3g} (relative)")
+        if drot > SHARD_POSE or dt > SHARD_POSE:
+            fails.append(f"the sharded refine differs from the one-device "
+                         f"refine by {drot:.3g} rad / {dt:.3g}")
     if fails:
         raise AssertionError("sharded:\n" + "\n".join(fails))
 
@@ -3949,7 +3976,8 @@ def main() -> None:
     refresh, flat = (k5["scenes"][k] for k in ("config 4 refresh",
                                               "groups of one ray"))
     k5_regs, k5_spills = k5_registers(libs[4].build_log, frame_plan)
-    k6_regs, k6_spills = kernel_registers(libs[5].build_log, "grid_kernel")
+    k6_regs, k6_spills = kernel_registers(libs[5].build_log,
+                                          f"grid_kernelILi{k6['team']}E")
     k6_frame, k6_refresh = (k6["scenes"][k] for k in ("tracking frame",
                                                       "config 4 refresh"))
     # No single PyTorch call computes any of the six (library_ms null).
@@ -4084,7 +4112,9 @@ def main() -> None:
         # counted, one a call.  ms, plain_ms and the bound: the recorded
         # tracking frame (8192 rays, 20,224 triangles), the bound from the
         # candidate tests and cell actions its walks took; refresh_*:
-        # config 4's recorded refresh; max_abs_err: against grid_plain;
+        # config 4's recorded refresh; large_*: the frame's rays on
+        # 1,998,000 triangles; team: the frame's lanes a ray, whose
+        # registers and spills these are; max_abs_err: against grid_plain;
         # sweep_max_abs_err: t and positions against K5 and the flat cast.
         "launches": k6["launches"],
         "cuda_launches": k6["cuda_launches"],
@@ -4099,7 +4129,11 @@ def main() -> None:
         "refresh_bound_ms": k6_refresh[2][0],
         "frame_tests": k6_frame[3][0],
         "frame_cell_actions": k6_frame[3][1],
-        "threads": k6["threads"],
+        "large_ms": k6["large"][0],
+        "large_plain_ms": k6["large"][1],
+        "large_bound_ms": k6["large"][2][0],
+        "large_tests": k6["large"][3][0],
+        "team": k6["team"],
         "registers": k6_regs,
         "spill_bytes": k6_spills,
         "build_ms": k6["build_ms"],

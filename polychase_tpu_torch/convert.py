@@ -160,13 +160,14 @@ def grid_accel(a, *, device) -> GC.GridAccel:
     data = _host(a.item_data).astype(np.float32)
     rows = np.zeros((int(items.max()) + 1, 12), np.float32)
     rows[items, :9] = data[:, :9]
+    cell_start = _host(a.cell_start).astype(np.int32)
     return GC.GridAccel(
-        cell_start=torch.as_tensor(_host(a.cell_start).astype(np.int32),
-                                   device=device),
+        cell_start=torch.as_tensor(cell_start, device=device),
         items=torch.as_tensor(items, device=device),
         tri_rows=torch.as_tensor(rows, device=device),
         lo=_f32(_host(a.lo), device), h=_f32(_host(a.h), device),
         res=torch.as_tensor(_host(a.res).astype(np.int32), device=device),
+        cell_load=GC.cell_load(cell_start),
     )
 
 

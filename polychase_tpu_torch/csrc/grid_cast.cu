@@ -42,21 +42,41 @@
 //     the first least value;
 //   - the start cell clamped into the grid in float, NaN taking 0.
 //
-// Layout: one thread a ray, which walks its cells on its own: no lockstep,
-// the cost a ray its own candidates and steps.  The grid's arrays and the
-// triangle rows are read through the read-only path (__ldg); at the sizes
-// the port casts (a mesh of 2M triangles: ~100 MB of items and as much of
-// rows) they are L2-resident only in part.  Blocks of 32 to 128 threads,
-// the most that still give every SM a block (kernels/grid_cast.py::
-// block_threads): a tracking frame's 8192 rays are 256 blocks of 32 on
-// 132 SMs.
+// Layout: a team of L lanes a ray (L = 8, 16 or 32, 32 / L teams a warp,
+// 128 threads a block; the wrapper picks L from the grid's candidates a
+// cell, kernels/grid_cast.py::team_width).  The lanes of a team hold the
+// same ray state (origin, direction, DDA, best hit, actions taken) and
+// walk its cells together, one cell a step:
+//   - the cell's range, cell_start[flat] and [flat + 1], one broadcast
+//     load for the team;
+//   - its candidates L at a time: lane j reads items[ptr + j] (one
+//     coalesced read) and its triangle's 48-byte row, independent loads in
+//     flight together, the next round's ids read behind them, and runs the
+//     Moller-Trumbore test; a shuffle reduction picks the least (t, lane),
+//     which joins the best hit only where strictly smaller: the first least
+//     t in visiting order, the plain version's winner (argmin's first
+//     minimum within a block, strict < across blocks);
+//   - the max_iters cap exactly: candidate k of a cell whose candidates
+//     begin at action a belongs to action a + k / block, and a lane tests
+//     only candidates whose action is below max_iters; the cell's end or
+//     step is one action more.
+// The grid's arrays and the triangle rows are read through the read-only
+// path (__ldg); at the sizes the port casts (a mesh of 2M triangles: ~100
+// MB of items and as much of rows) they are L2-resident only in part.
 //
-// What bounds it on the card: neither bytes nor operations.  Each action
-// is a chain of dependent loads (cell_start, then items, then the row)
-// followed by ~54 operations a candidate; the warps of a block diverge
-// where their rays take different walks, and a warp runs to its longest.
-// The bound counts the inputs read once and the operations the walk of
-// this data needs (chip_smoke.py::k6_bound); its share is low by design.
+// What bounds it on the card: neither bytes nor operations, but the walk's
+// longest chains of dependent loads.  Counted on the card, a ray leaves
+// under 2 full cells and 8 empty ones on the mean, and its tests have a
+// long tail: at 1,998,000 triangles 141 a ray on the mean, 5,524 in one
+// pole cell of a UV sphere.  One thread a ray tested those in series, ~0.3
+// us each (1.7 ms); a team of 32 takes them 32 a round.  Where cells are
+// small a wide team idles and its warp carries fewer rays, and the teams
+// of a warp diverge where their walks differ, so the width follows the
+// cells' candidates.  The empty cells are few enough that reading a
+// window of cells' ranges at once did not pay for the DDA steps every lane
+// then ran (PERF.md §6).  The bound counts what this data's walks
+// read, each once, and the operations they need (chip_smoke.py::
+// k6_bound).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,7 +86,7 @@
 
 namespace {
 
-constexpr int kMaxThreads = 128;
+constexpr int kThreads = 128;  // threads a block, 128 / L teams
 constexpr float kEps = 1e-10f;
 constexpr uint32_t kInvalid = 0xFFFFFFFFu;
 
@@ -91,6 +111,11 @@ struct Params {
     int64_t* prim;           // (N,)
     bool* valid;             // (N,)
     int n, block, max_iters, check_mask;
+};
+
+// The ray every lane of a team holds.
+struct Ray {
+    float o[3], d[3];
 };
 
 // a*b - c*d as torch.linalg.cross rounds it.
@@ -168,21 +193,101 @@ __device__ void write_hit(const Params& p, long long r, uint32_t id,
     p.valid[r] = valid;
 }
 
-__global__ void __launch_bounds__(kMaxThreads) grid_kernel(Params p) {
+// The Moller-Trumbore test of ray y against triangle id (its row): t
+// where it hits, else INFINITY, with its barycentrics.
+__device__ __forceinline__ float moller(const Params& p, const Ray& y,
+                                        uint32_t id, float& u, float& v) {
+    const float4 r0 = __ldg(p.rows + 3 * id);
+    const float4 r1 = __ldg(p.rows + 3 * id + 1);
+    const float4 r2 = __ldg(p.rows + 3 * id + 2);
+    const float p1[3] = {r0.x, r0.y, r0.z};
+    const float e1[3] = {r0.w, r1.x, r1.y};
+    const float e2[3] = {r1.z, r1.w, r2.x};
+    float rce2[3], s[3], sce1[3];
+    cross3(y.d, e2, rce2);
+    const float det = tsum3(e1, rce2);
+    const bool ok = fabsf(det) > kEps;
+    // torch: 1.0 / x is reciprocal(x) * 1.0.
+    const float inv_det = ok ? __fdiv_rn(1.f, det) : 0.f;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) s[i] = __fsub_rn(y.o[i], p1[i]);
+    u = __fmul_rn(inv_det, tsum3(s, rce2));
+    cross3(s, e1, sce1);
+    v = __fmul_rn(inv_det, tsum3(y.d, sce1));
+    const float t = __fmul_rn(inv_det, tsum3(e2, sce1));
+    const bool hit = ok && u >= 0.f && u <= 1.f && v >= 0.f &&
+                     __fadd_rn(u, v) <= 1.f && t > 0.f;
+    return hit ? t : INFINITY;
+}
+
+// A team tests the candidates [cb, ce) of one cell, L at a time, the first
+// of them at action `acts`: each lane one candidate, then the least (t,
+// lane) of the L joins the best hit where strictly smaller.  Candidate k
+// belongs to action acts + (k - cb) / block and is tested only below the
+// cap.  The next round's ids are read while this round's rows load, so a
+// round waits on one load, not two.
+template <int L>
+__device__ __forceinline__ void test_cell(const Params& p, const Ray& y,
+                                          unsigned mask, int lane, int cb,
+                                          int ce, int acts, float& best_t,
+                                          float& bu, float& bv,
+                                          uint32_t& best) {
+    const auto id_at = [&](int k) -> uint32_t {
+        return k < ce && acts + (k - cb) / p.block < p.max_iters
+                   ? static_cast<uint32_t>(__ldg(p.items + k))
+                   : kInvalid;
+    };
+    uint32_t next = id_at(cb + lane);
+    for (int k0 = cb; k0 < ce; k0 += L) {
+        const uint32_t id = next;
+        next = id_at(k0 + L + lane);
+        float t = INFINITY, u = 0.f, v = 0.f;
+        if (id != kInvalid) t = moller(p, y, id, u, v);
+        float kt = t;
+        int kl = lane;
+#pragma unroll
+        for (int off = L / 2; off > 0; off >>= 1) {
+            const float ot = __shfl_xor_sync(mask, kt, off, L);
+            const int ol = __shfl_xor_sync(mask, kl, off, L);
+            if (ot < kt || (ot == kt && ol < kl)) {
+                kt = ot;
+                kl = ol;
+            }
+        }
+        if (kt < best_t) {  // the same on every lane of the team
+            best_t = kt;
+            bu = __shfl_sync(mask, u, kl, L);
+            bv = __shfl_sync(mask, v, kl, L);
+            best = __shfl_sync(mask, id, kl, L);
+        }
+        if (acts + (k0 + L - cb) / p.block >= p.max_iters) break;
+    }
+}
+
+template <int L>
+__global__ void __launch_bounds__(kThreads) grid_kernel(Params p) {
+    const int lane = static_cast<int>(threadIdx.x) & (L - 1);
     const long long r =
-        static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (r >= p.n) return;
-    float o[3], d[3], lo[3], hi[3], h[3];
+        (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / L;
+    if (r >= p.n) return;  // the whole team
+    // The team's lanes within the warp.
+    const unsigned base = threadIdx.x & 31u & ~static_cast<unsigned>(L - 1);
+    const unsigned mask =
+        L == 32 ? 0xFFFFFFFFu : ((1u << (L & 31)) - 1u) << base;
+    Ray y;
+    float lo[3], hi[3], h[3];
     int res[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-        o[i] = p.origins[3 * r + i];
-        d[i] = p.dirs[3 * r + i];
+        y.o[i] = p.origins[3 * r + i];
+        y.d[i] = p.dirs[3 * r + i];
         lo[i] = __ldg(p.lo + i);
         h[i] = __ldg(p.h + i);
         res[i] = __ldg(p.res + i);
         hi[i] = __fadd_rn(lo[i], __fmul_rn(h[i], static_cast<float>(res[i])));
     }
+    const float* o = y.o;
+    const float* d = y.d;
 
     // The slab entry: t0 = amax of the nears, t1 = amin of the fars (amax
     // over 3 as (a0 max a2) max a1, which NaN aside is any order).
@@ -207,6 +312,7 @@ __global__ void __launch_bounds__(kMaxThreads) grid_kernel(Params p) {
     float best_t = INFINITY, bu = 0.f, bv = 0.f;
     uint32_t best = kInvalid;
     if (inside && p.max_iters > 0) {
+        // The DDA state of the start cell.
         int cell[3], step[3];
         float tmx[3], tdl[3];
 #pragma unroll
@@ -224,57 +330,28 @@ __global__ void __launch_bounds__(kMaxThreads) grid_kernel(Params p) {
             tmx[i] = z ? INFINITY : __fdiv_rn(__fsub_rn(nb, o[i]), d[i]);
             tdl[i] = z ? INFINITY : fabsf(__fdiv_rn(h[i], d[i]));
         }
-        int flat = (cell[0] * res[1] + cell[1]) * res[2] + cell[2];
-        int ptr = __ldg(p.cell_start + flat);
-        int end = __ldg(p.cell_start + flat + 1);
-
-        for (int it = 0; it < p.max_iters; ++it) {
-            if (ptr < end) {
-                // A block of the cell's candidates; of equal t's the
-                // first in visiting order stays.
-                const int stop = min(ptr + p.block, end);
-                for (int k = ptr; k < stop; ++k) {
-                    const uint32_t id =
-                        static_cast<uint32_t>(__ldg(p.items + k));
-                    const float4 r0 = __ldg(p.rows + 3 * id);
-                    const float4 r1 = __ldg(p.rows + 3 * id + 1);
-                    const float4 r2 = __ldg(p.rows + 3 * id + 2);
-                    const float p1[3] = {r0.x, r0.y, r0.z};
-                    const float e1[3] = {r0.w, r1.x, r1.y};
-                    const float e2[3] = {r1.z, r1.w, r2.x};
-                    float rce2[3], s[3], sce1[3];
-                    cross3(d, e2, rce2);
-                    const float det = tsum3(e1, rce2);
-                    const bool ok = fabsf(det) > kEps;
-                    // torch: 1.0 / x is reciprocal(x) * 1.0.
-                    const float inv_det = ok ? __fdiv_rn(1.f, det) : 0.f;
-#pragma unroll
-                    for (int i = 0; i < 3; ++i) s[i] = __fsub_rn(o[i], p1[i]);
-                    const float u = __fmul_rn(inv_det, tsum3(s, rce2));
-                    cross3(s, e1, sce1);
-                    const float v = __fmul_rn(inv_det, tsum3(d, sce1));
-                    const float t = __fmul_rn(inv_det, tsum3(e2, sce1));
-                    const bool hit = ok && u >= 0.f && u <= 1.f && v >= 0.f &&
-                                     __fadd_rn(u, v) <= 1.f && t > 0.f;
-                    if (hit && t < best_t) {
-                        best_t = t;
-                        bu = u;
-                        bv = v;
-                        best = id;
-                    }
-                }
-                ptr = stop;
-                continue;
+        // One cell a step, every lane of the team on the same cell: its
+        // range (one broadcast load), its candidates L at a time, then its
+        // end or the step to the next cell, each one action.
+        int acts = 0;  // the actions taken before the current cell's
+        for (;;) {
+            const int flat = (cell[0] * res[1] + cell[1]) * res[2] + cell[2];
+            const int cb = __ldg(p.cell_start + flat);
+            const int ce = __ldg(p.cell_start + flat + 1);
+            if (cb < ce) {
+                test_cell<L>(p, y, mask, lane, cb, ce, acts, best_t, bu, bv,
+                             best);
+                acts += (ce - cb + p.block - 1) / p.block;
+                if (acts >= p.max_iters) break;
             }
-            // The cell is exhausted: end here, or step to the next cell
-            // along the axis whose boundary comes first.
-            const float t_exit = tmin(tmin(tmx[0], tmx[2]), tmx[1]);
-            if (best_t <= t_exit) break;
+            // The cell is exhausted: end at its exit, or step on along the
+            // axis whose boundary comes first (selected without indexing
+            // by it, so that the arrays stay in registers), or end where
+            // that step leaves the grid.
+            if (best_t <= tmin(tmin(tmx[0], tmx[2]), tmx[1])) break;
             const int ax = (tmx[0] <= tmx[1] && tmx[0] <= tmx[2])
                                ? 0
                                : (tmx[1] <= tmx[2] ? 1 : 2);
-            // The axis selected without indexing by it, so that the
-            // arrays stay in registers.
             bool out = false;
 #pragma unroll
             for (int i = 0; i < 3; ++i)
@@ -283,13 +360,19 @@ __global__ void __launch_bounds__(kMaxThreads) grid_kernel(Params p) {
                     out = cell[i] < 0 || cell[i] >= res[i];
                     tmx[i] = __fadd_rn(tmx[i], tdl[i]);
                 }
-            if (out) break;
-            flat = (cell[0] * res[1] + cell[1]) * res[2] + cell[2];
-            ptr = __ldg(p.cell_start + flat);
-            end = __ldg(p.cell_start + flat + 1);
+            if (out || ++acts >= p.max_iters) break;
         }
     }
-    write_hit(p, r, best, best_t, bu, bv);
+    if (lane == 0) write_hit(p, r, best, best_t, bu, bv);
+}
+
+template <int L>
+cudaError_t launch_team(const Params& p, cudaStream_t stream) {
+    const long long threads = static_cast<long long>(p.n) * L;
+    const unsigned blocks =
+        static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+    grid_kernel<L><<<blocks, kThreads, 0, stream>>>(p);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -299,19 +382,17 @@ __global__ void __launch_bounds__(kMaxThreads) grid_kernel(Params p) {
 // words (ceil(T / 32) or more): contiguous int64.  Writes pos, normal
 // (N, 3), bary (N, 2), t (N,) float32, prim (N,) int64 and valid (N,)
 // bool: grid_raycast's hits.  block: candidates an action (>= 1);
-// max_iters: actions a ray at most (>= 0); threads: threads a block (32,
-// 64 or 128).  Queues one launch on the stream; returns the CUDA error (0
-// on success).
+// max_iters: actions a ray at most (>= 0); team: lanes a ray (8, 16 or
+// 32).  Queues one launch on the stream; returns the CUDA error (0 on
+// success).
 extern "C" int grid_cast_launch(
     const void* origins, const void* dirs, const void* cell_start,
     const void* items, const void* rows, const void* lo, const void* h,
     const void* res, const void* verts, const void* tris, const void* words,
-    int n, int block, int max_iters, int check_mask, int threads, void* pos,
+    int n, int block, int max_iters, int check_mask, int team, void* pos,
     void* normal, void* bary, void* t, void* prim, void* valid,
     void* stream) {
-    if (n < 1 || block < 1 || max_iters < 0 ||
-        (threads != 32 && threads != 64 && threads != kMaxThreads))
-        return cudaErrorInvalidValue;
+    if (n < 1 || block < 1 || max_iters < 0) return cudaErrorInvalidValue;
     Params p;
     p.origins = static_cast<const float*>(origins);
     p.dirs = static_cast<const float*>(dirs);
@@ -334,9 +415,14 @@ extern "C" int grid_cast_launch(
     p.block = block;
     p.max_iters = max_iters;
     p.check_mask = check_mask;
-    const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
-    grid_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-    const cudaError_t e = cudaGetLastError();
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t e;
+    switch (team) {
+        case 8: e = launch_team<8>(p, s); break;
+        case 16: e = launch_team<16>(p, s); break;
+        case 32: e = launch_team<32>(p, s); break;
+        default: return cudaErrorInvalidValue;
+    }
     if (e != cudaSuccess) return static_cast<int>(e);
     launched.fetch_add(1, std::memory_order_relaxed);
     return 0;

@@ -38,6 +38,7 @@ masked (cpp/ray_casting.cc:100-120).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -57,6 +58,11 @@ class GridAccel:
     ``cell_start`` has ``prod(res) + 1`` CSR offsets into ``items`` (the
     flat cell → triangle lists, x-major, each list in ascending id).
     ``tri_rows`` holds one row a triangle, ``[p1, e1, e2, 0, 0, 0]``.
+    ``cell_load``, the candidates of the cell an item lies in, on the mean
+    over the items (sum n^2 / sum n over the cells' counts n), is known to
+    the build and sets K6's team width (``kernels.grid_cast.team_width``):
+    unlike the plain mean over the non-empty cells, it sees the few dense
+    cells of a skewed grid, where the rays go.
     """
 
     cell_start: torch.Tensor  # (prod(res) + 1,) int32
@@ -65,11 +71,22 @@ class GridAccel:
     lo: torch.Tensor          # (3,) float32 grid origin
     h: torch.Tensor           # (3,) float32 cell size
     res: torch.Tensor         # (3,) int32 cells per axis
+    cell_load: float          # sum n^2 / sum n over the cells' counts n
 
     def to(self, device) -> "GridAccel":
         device = as_device(device)
         return GridAccel(*(getattr(self, f).to(device) for f in (
-            "cell_start", "items", "tri_rows", "lo", "h", "res")))
+            "cell_start", "items", "tri_rows", "lo", "h", "res")),
+            self.cell_load)
+
+
+def cell_load(cell_start: np.ndarray) -> float:
+    """The candidates of the cell an item lies in, on the mean over the
+    items, for CSR offsets ``cell_start``: sum n^2 / sum n over the cells'
+    counts n (0.0 where no cell holds any)."""
+    counts = np.diff(np.asarray(cell_start, np.int64)).astype(np.float64)
+    total = counts.sum()
+    return float((counts * counts).sum() / total) if total else 0.0
 
 
 def _host(a, dtype) -> np.ndarray:
@@ -104,6 +121,7 @@ def build_grid_accel(vertices, triangles, max_cells: int = 1 << 21,
             lo=torch.as_tensor(lo.astype(np.float32), device=device),
             h=torch.as_tensor(h.astype(np.float32), device=device),
             res=torch.as_tensor(res.astype(np.int32), device=device),
+            cell_load=cell_load(cell_start),
         )
 
     if T == 0 or v.shape[0] == 0:
@@ -216,21 +234,53 @@ def _no_hits(n: int, device) -> RayHits:
         valid=torch.zeros((n,), dtype=torch.bool, device=device))
 
 
+class Walks(NamedTuple):
+    """The work of each ray's walk, (N,) int64 each: the candidates it
+    tested, and its cell actions (a DDA step, or its end there) that left
+    an empty cell and a cell with candidates."""
+
+    tests: torch.Tensor
+    empty: torch.Tensor
+    full: torch.Tensor
+
+
+class Reads(NamedTuple):
+    """The grid's entries that all the walks read, each counted once: the
+    ``cell_start`` entries (two a visited cell, shared by cells adjacent in
+    flat order), the ``items`` slots tested and the triangle rows
+    tested."""
+
+    cell_start: int
+    items: int
+    rows: int
+
+
 def grid_plain_counted(origins: torch.Tensor, dirs: torch.Tensor,
                        accel: GridAccel, vertices: torch.Tensor,
                        triangles: torch.Tensor, words: torch.Tensor,
                        check_mask: bool = True, block: int = 4,
                        max_iters: int = 200_000):
     """:func:`grid_plain`, with the work its inputs needed: returns
-    ``(hits, tests, steps, iterations, found)``, the candidates tested
-    (ray, triangle pairs), the actions that left a cell (a DDA step, or
-    the ray's end there), the lockstep's iterations and each ray's closest
-    triangle before the mask test (``INVALID_ID`` where none)."""
+    ``(hits, walks, iterations, found, reads)``, each ray's
+    :class:`Walks`, the lockstep's iterations, each ray's closest triangle
+    before the mask test (``INVALID_ID`` where none) and the
+    :class:`Reads` of the grid."""
+    return _walk(origins, dirs, accel, vertices, triangles, words,
+                 check_mask, block, max_iters, True)
+
+
+def _walk(origins, dirs, accel, vertices, triangles, words, check_mask,
+          block, max_iters, counted):
+    """The lockstep walk of :func:`grid_plain`; where ``counted``, also the
+    work of :func:`grid_plain_counted`, else ``(hits, None, iterations,
+    found, None)``."""
     n = origins.shape[0]
     dev = origins.device
     if triangles.shape[0] == 0:
         hits = _no_hits(n, dev)
-        return hits, 0, 0, 0, hits.prim_id
+        zero = torch.zeros(n, dtype=torch.int64, device=dev)
+        return (hits, Walks(zero, zero, zero) if counted else None, 0,
+                hits.prim_id, Reads(0, 0, 0) if counted else None)
     cs, items, rows = accel.cell_start, accel.items, accel.tri_rows
     res, glo, h = accel.res, accel.lo, accel.h
     ghi = glo + h * res.to(torch.float32)
@@ -272,7 +322,14 @@ def grid_plain_counted(origins: torch.Tensor, dirs: torch.Tensor,
     axes = torch.arange(3, device=dev)
     o_b, d_b = origins[:, None, :], dirs[:, None, :]
     ni = items.shape[0]
-    tests = steps = torch.zeros((), dtype=torch.int64, device=dev)
+    if counted:
+        full = ptr < end
+        tests, empty_steps, full_steps = (
+            torch.zeros(n, dtype=torch.int64, device=dev) for _ in range(3))
+        visited = torch.zeros(cs.shape[0], dtype=torch.bool, device=dev)
+        visited[f0[inside]] = True
+        slot_read = torch.zeros(ni, dtype=torch.bool, device=dev)
+        row_read = torch.zeros(rows.shape[0], dtype=torch.bool, device=dev)
     it = 0
     while it < max_iters and bool(active.any()):
         has = ptr < end
@@ -311,10 +368,16 @@ def grid_plain_counted(origins: torch.Tensor, dirs: torch.Tensor,
         fc = flat_of(cell)
         ptr = torch.where(move, cs[fc], ptr)
         end = torch.where(move, cs[fc + 1], end)
+        if counted:
+            tests = tests + cval.sum(dim=-1)
+            empty_steps = empty_steps + (do_adv & ~full)
+            full_steps = full_steps + (do_adv & full)
+            full = torch.where(move, ptr < end, full)
+            visited[fc[move]] = True
+            slot_read[idx[cval].long()] = True
+            row_read[ids[cval]] = True
 
         active = active & ~done
-        tests = tests + cval.sum()
-        steps = steps + do_adv.sum()
         it += 1
 
     valid = _unmasked(words, best_id, check_mask)
@@ -322,7 +385,13 @@ def grid_plain_counted(origins: torch.Tensor, dirs: torch.Tensor,
     q = vertices[triangles[safe]]  # (N, 3, 3)
     hits = _ray_hits(q[:, 0], q[:, 1], q[:, 2], best_uv, best_t, best_id,
                      valid)
-    return hits, int(tests), int(steps), it, best_id
+    if not counted:
+        return hits, None, it, best_id, None
+    # A visited cell's range is its entry and the next one.
+    visited[1:] |= visited[:-1].clone()
+    return (hits, Walks(tests, empty_steps, full_steps), it, best_id,
+            Reads(int(visited.sum()), int(slot_read.sum()),
+                  int(row_read.sum())))
 
 
 def grid_plain(origins: torch.Tensor, dirs: torch.Tensor, accel: GridAccel,
@@ -337,8 +406,8 @@ def grid_plain(origins: torch.Tensor, dirs: torch.Tensor, accel: GridAccel,
     ``vertices``, ``triangles`` and ``words`` are a :class:`Mesh`'s
     arrays.  The hit's barycentrics are the walk's; position and normal
     follow from them (``raycast._ray_hits``)."""
-    return grid_plain_counted(origins, dirs, accel, vertices, triangles,
-                              words, check_mask, block, max_iters)[0]
+    return _walk(origins, dirs, accel, vertices, triangles, words,
+                 check_mask, block, max_iters, False)[0]
 
 
 def grid_raycast(mesh: Mesh, accel: GridAccel, origins: torch.Tensor,

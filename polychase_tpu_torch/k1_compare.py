@@ -9,36 +9,21 @@ commit unpacked into a directory that ``.gitignore`` lists).  The script
 imports ``polychase_tpu_torch`` from ROOT, so it builds and times that
 checkout's K1 through its ``solve_arrays_lm``, on the same seeded scenes
 (ROOT's ``synthetic.pnp_scene``, or the ``chip_smoke.pnp_scene`` it had
-before) and with one harness: CUDA events around 50 calls queued behind a
-device sleep, so that the time is the device's and not the wrapper's host
-side.  Prints the card, then one line per case.  Run it for two checkouts
-in turns (A, B, B, A) within one call to compare them.
+before) and with one harness: ``event_ms`` of the ``timing.py`` beside
+this script, CUDA events around 50 calls queued behind a device sleep, so
+that the time is the device's and not the wrapper's host side.  Prints the
+card, then one line per case.  Run it for two checkouts in turns (A, B, B,
+A) within one call to compare them.
 """
 
 from __future__ import annotations
 
+import runpy
 import subprocess
 import sys
 from pathlib import Path
 
-SLEEP_CYCLES = 20_000_000
 REPS = 50
-
-
-def device_ms(fn, reps=REPS):
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main() -> None:
@@ -63,6 +48,10 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}; checkout {root}")
     device = torch.device("cuda")
+    # timing.py beside this script (it imports nothing of the port), so
+    # that every checkout is timed by one harness.
+    event_ms = runpy.run_path(Path(__file__).with_name("timing.py"))[
+        "event_ms"]
     rng = np.random.default_rng(0)
     huber = BundleOptions(max_iterations=50, loss_type=1, function_tol=1e-5)
     for label, S, n, opt, opts in (
@@ -78,7 +67,7 @@ def main() -> None:
                 for i in range(5)]
         kw = dict(opt_f=opt, opt_pp=False, opts=opts)
         out = solve_arrays_lm(*args, **kw).cpu().numpy()
-        ms = device_ms(lambda: solve_arrays_lm(*args, **kw))
+        ms = event_ms(lambda: solve_arrays_lm(*args, **kw), REPS)
         print(f"  {label}: {ms:.4f} ms per solve, iterations "
               f"{out[:, 11].astype(int).tolist()}")
 

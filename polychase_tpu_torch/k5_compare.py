@@ -29,7 +29,7 @@ checkouts in turns (A, B, B, A) within one call to compare them.
 from __future__ import annotations
 
 import hashlib
-import importlib.util
+import runpy
 import sqlite3
 import subprocess
 import sys
@@ -37,17 +37,6 @@ import tempfile
 from pathlib import Path
 
 REPS = 20
-
-
-def own_timing():
-    """The ``timing`` module beside this script, loaded by its path (it
-    imports nothing of the port), so that every checkout is timed by one
-    harness, whatever ROOT's package holds."""
-    here = Path(__file__).resolve().parent / "timing.py"
-    spec = importlib.util.spec_from_file_location("k5_compare_timing", here)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def db_digest(path) -> str:
@@ -100,8 +89,10 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}; checkout {root}")
     device = torch.device("cuda")
-    timing = own_timing()
-    device_work = timing.device_work
+    # timing.py beside this script (it imports nothing of the port), so
+    # that every checkout is timed by one harness.
+    timing = runpy.run_path(Path(__file__).with_name("timing.py"))
+    event_ms, device_work = timing["event_ms"], timing["device_work"]
     frame = scene(device, 4, 2048, (80, 128))
     k48 = scene(device, 4, 48, (80, 128))
     refresh = scene(device, 250, 128, (24, 32))
@@ -112,7 +103,7 @@ def main() -> None:
     scenes = (("tracking frame", frame), ("tracking frame, K 48", k48),
               ("config 4 refresh", refresh), ("groups of one ray", flat))
     for label, (mesh, o, d) in scenes:
-        whole = timing.event_ms(lambda: R.raycast_grouped(mesh, o, d),
+        whole = event_ms(lambda: R.raycast_grouped(mesh, o, d),
                                 REPS)
         queued, ran, _ = device_work(lambda: R.raycast_grouped(mesh, o, d))
         print(f"  {label} (G {d.shape[0]}, K {d.shape[1]}, T "
@@ -130,7 +121,7 @@ def main() -> None:
             G, K = d.shape[:2]
             chosen = RS.launch_plan(G, K, mesh.num_triangles,
                                     RS._sm_count(device))
-            ms = timing.event_ms(lambda: RS.raycast_hits(*args), REPS)
+            ms = event_ms(lambda: RS.raycast_hits(*args), REPS)
             print(f"  {label} at launch_plan's {chosen}: {ms:.4f} ms")
             packed = K < RS.PACKED_BELOW
             for r in (4,) if packed else (2, 4):
@@ -138,7 +129,7 @@ def main() -> None:
                 blocks = -(-G * K // per) if packed else -(-K // per)
                 for c in (1, 2, 4, 8):
                     plan = RS.Plan(r, packed, blocks, c)
-                    ms = timing.event_ms(lambda: RS._launch(*args, plan),
+                    ms = event_ms(lambda: RS._launch(*args, plan),
                                          REPS)
                     print(f"  {label} at {plan}: {ms:.4f} ms")
     with tempfile.TemporaryDirectory() as workdir:

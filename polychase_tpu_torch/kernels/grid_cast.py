@@ -7,8 +7,9 @@ cast as an XLA ``lax.while_loop`` over all rays in lockstep
 One call casts N rays, each with its own origin, through a
 :class:`engine.gridcast.GridAccel`: each ray's closest hit (the first
 strictly smaller t in visiting order), dropped where its triangle is
-masked, with its position, normal and barycentrics.  The plain torch
-version is ``engine.gridcast.grid_plain``.
+masked, with its position, normal and barycentrics.  A team of lanes walks
+each ray (``team_width``).  The plain torch version is
+``engine.gridcast.grid_plain``.
 
 CPU tensors take the plain version; CUDA tensors launch the kernel on their
 own card, whatever the current device, and any failure to build or launch
@@ -23,27 +24,32 @@ import torch
 
 from ..backend import current
 from . import build
-from .raycast_sweep import _sm_count
 
 # Calls that launched the kernel in this process (one per cast).
 launches = 0
 
-THREADS = (128, 64, 32)  # threads a block, one ray each (csrc: kMaxThreads)
+TEAMS = (8, 16, 32)  # lanes a ray the kernel takes (csrc: grid_kernel<L>)
 
 _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
              + [ctypes.c_void_p] * 7)
 
 
-def block_threads(n: int, sms: int) -> int:
-    """Threads a block for ``n`` rays on a card with ``sms`` SMs: the most
-    of 128, 64 and 32 whose blocks still give every SM one, else 32.  (A
-    tracking frame's 8192 rays make 64 blocks of 128 and 128 of 64, fewer
-    than an H100's 132 SMs; blocks of 32 give 256.  Config 4's 32,000
-    rays take 128.)"""
-    for threads in THREADS:
-        if -(-n // threads) >= sms:
-            return threads
-    return THREADS[-1]
+def team_width(accel) -> int:
+    """Lanes a ray for casts through ``accel``: the least of ``TEAMS`` whose
+    two rounds hold the candidates of the cell an item lies in, on the
+    mean (``accel.cell_load``, the build's), else the widest.  Measured on
+    an H100 at every width (``k6_compare.py --teams``, PERF.md §6): the
+    fastest, or within 2% of it, on five of seven scenes, from config 4's
+    refresh on a 1,472-triangle sphere (load 9.4: 8 lanes) to 1,998,000
+    triangles (117.6: 32) and a huge ground triangle whose grid holds the
+    mesh in a few dense cells (243.7: 32); 8,192 rays into a soup of
+    20,000 (9.1) or the 1,472-triangle sphere took 16 lanes 14-16% faster
+    (at 8 lanes those rays fill a quarter of the card's warp slots).
+    Pure arithmetic on a number the build knows: no host sync in a cast."""
+    for team in TEAMS:
+        if accel.cell_load <= 2 * team:
+            return team
+    return TEAMS[-1]
 
 
 def load():
@@ -97,9 +103,10 @@ def _check(origins, dirs, accel, vertices, triangles, words, block,
 
 
 def _launch(origins, dirs, accel, vertices, triangles, words, check_mask,
-            block, max_iters, threads):
-    """One launch of K6 on the tensors' card, ``threads`` a block: the
-    fields of :class:`engine.raycast.RayHits`."""
+            block, max_iters, team):
+    """One launch of K6 on the tensors' card, ``team`` lanes a ray (one of
+    ``TEAMS``; the tests and ``k6_compare.py`` force each): the fields of
+    :class:`engine.raycast.RayHits`."""
     global launches
     from ..engine.raycast import RayHits
 
@@ -121,7 +128,7 @@ def _launch(origins, dirs, accel, vertices, triangles, words, check_mask,
                 accel.tri_rows.data_ptr(), accel.lo.data_ptr(),
                 accel.h.data_ptr(), accel.res.data_ptr(),
                 vertices.data_ptr(), triangles.data_ptr(), words.data_ptr(),
-                n, block, max_iters, int(bool(check_mask)), threads,
+                n, block, max_iters, int(bool(check_mask)), team,
                 hits.pos.data_ptr(), hits.normal.data_ptr(),
                 hits.barycentric.data_ptr(), hits.t.data_ptr(),
                 hits.prim_id.data_ptr(), hits.valid.data_ptr(),
@@ -152,6 +159,5 @@ def grid_hits(origins: torch.Tensor, dirs: torch.Tensor, accel,
                           check_mask, block, max_iters)
     if dev.type != "cuda":
         raise ValueError(f"grid_hits: unsupported device {dev}")
-    threads = block_threads(origins.shape[0], _sm_count(dev))
     return _launch(origins, dirs, accel, vertices, triangles, words,
-                   check_mask, block, max_iters, threads)
+                   check_mask, block, max_iters, team_width(accel))

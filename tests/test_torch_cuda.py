@@ -24,7 +24,7 @@ from polychase_tpu_torch.engine.gftt import good_features_to_track
 from polychase_tpu_torch.engine.levmarq import BundleOptions
 from polychase_tpu_torch.engine.pnp import solve_arrays
 from polychase_tpu_torch.engine.pose import quat_to_mat_np
-from polychase_tpu_torch.kernels import lk_iter, lk_prep, pnp_lm
+from polychase_tpu_torch.kernels import grid_cast, lk_iter, lk_prep, pnp_lm
 from polychase_tpu_torch.synthetic import panning_clip
 
 from thread_drain import drain
@@ -1219,10 +1219,10 @@ def test_raycast_sweep_failures_raise(card, monkeypatch):
 
 def _k6_scene(card, kind, n, seed=0):
     """A mesh on the card, its grid and ``n`` rays: from distance 4 around a
-    UV sphere (24×32; 80×128 for ``frame``; 40 triangles masked for
-    ``masked``), a soup of 2,000 triangles, axis-aligned rays from inside
-    and outside the sphere, a huge ground triangle under the sphere, or an
-    empty mesh."""
+    UV sphere (24×32; 80×128 for ``frame``; 450×450, 404,100 triangles,
+    for ``large``; 40 triangles masked for ``masked``), a soup of 2,000
+    triangles, axis-aligned rays from inside and outside the sphere, a huge
+    ground triangle under the sphere, or an empty mesh."""
     from polychase_tpu_torch.engine.geometry import (
         Mesh, mask_array_size, set_mask_bits,
     )
@@ -1230,7 +1230,8 @@ def _k6_scene(card, kind, n, seed=0):
     from polychase_tpu_torch.synthetic import uv_sphere
 
     rng = np.random.default_rng(seed)
-    verts, tris = uv_sphere(*((80, 128) if kind == "frame" else (24, 32)))
+    verts, tris = uv_sphere(*{"frame": (80, 128), "large": (450, 450)}.get(
+        kind, (24, 32)))
     words = None
     if kind == "masked":
         words = np.zeros(mask_array_size(len(tris)), np.uint32)
@@ -1263,26 +1264,45 @@ def _k6_scene(card, kind, n, seed=0):
     return mesh, accel, f32(o), f32(d)
 
 
-K6_CASES = [("plain", 2000, {}), ("frame", 8192, {}), ("masked", 3000, {}),
-            ("masked", 3000, dict(check_mask=False)), ("soup", 4096, {}),
-            ("axis", 2048, {}), ("huge", 2048, {}), ("empty", 256, {}),
-            ("plain", 2000, dict(max_iters=1)),
-            ("frame", 8192, dict(max_iters=8)),
-            ("plain", 2000, dict(block=1)), ("plain", 100, dict(block=2))]
+# (kind, rays, keywords, lanes a ray: None for team_width's, else forced)
+K6_CASES = [("plain", 2000, {}, None), ("frame", 8192, {}, None),
+            ("masked", 3000, {}, None),
+            ("masked", 3000, dict(check_mask=False), None),
+            ("soup", 4096, {}, None), ("axis", 2048, {}, None),
+            ("huge", 2048, {}, None), ("empty", 256, {}, None),
+            ("plain", 2000, dict(max_iters=1), None),
+            ("frame", 8192, dict(max_iters=8), None),
+            ("plain", 2000, dict(block=1), None),
+            ("plain", 100, dict(block=2), None),
+            ("plain", 2000, dict(block=7), None),
+            ("large", 8192, {}, None)]
+K6_CASES += [c for team in grid_cast.TEAMS for c in (
+    ("frame", 8192, {}, team), ("soup", 4096, {}, team),
+    ("axis", 2048, {}, team), ("huge", 2048, dict(block=7), team),
+    ("plain", 2000, dict(max_iters=6, block=1), team),
+    ("frame", 8192, dict(max_iters=8), team))]
 
 
-@pytest.mark.parametrize("kind,n,kw", K6_CASES)
-def test_grid_cast_matches_plain(card, kind, n, kw):
+@pytest.mark.parametrize("kind,n,kw,team", K6_CASES)
+def test_grid_cast_matches_plain(card, kind, n, kw, team):
     """K6 against its plain version (``grid_plain``, the reference's
     lockstep loop in torch) on the card: every field of the hits to the
-    bit, one launch a call, counted by the wrapper and by the library."""
+    bit, one launch a call, counted by the wrapper and by the library; at
+    the team width ``team_width`` picks and at each of ``TEAMS``, forced
+    through ``_launch``."""
     from polychase_tpu_torch.engine.gridcast import grid_plain
     from polychase_tpu_torch.kernels import grid_cast as GK
 
     mesh, accel, o, d = _k6_scene(card, kind, n)
     arrays = (mesh.vertices, mesh.triangles, mesh.masked_triangles)
     before = (GK.launches, GK.cuda_launches())
-    got = GK.grid_hits(o, d, accel, *arrays, **kw)
+    if team is None:
+        got = GK.grid_hits(o, d, accel, *arrays, **kw)
+    else:
+        assert team in GK.TEAMS
+        got = GK._launch(o, d, accel, *arrays, kw.get("check_mask", True),
+                         kw.get("block", 4), kw.get("max_iters", 200_000),
+                         team)
     assert (GK.launches, GK.cuda_launches()) == tuple(b + 1 for b in before)
     want = grid_plain(o, d, accel, *arrays, **kw)
     for f in ("pos", "normal", "barycentric", "t", "prim_id", "valid"):
@@ -1348,7 +1368,7 @@ def test_grid_cast_failures_raise(card, monkeypatch):
     GK.grid_hits(o, d, accel, *arrays)  # builds and loads the library
     before = (GK.launches, GK.cuda_launches())
     with monkeypatch.context() as m:
-        m.setattr(GK, "block_threads", lambda n, sms: 48)
+        m.setattr(GK, "team_width", lambda accel: 6)
         with pytest.raises(RuntimeError, match="CUDA error"):
             GK.grid_hits(o, d, accel, *arrays)
     assert (GK.launches, GK.cuda_launches()) == before

@@ -20,7 +20,13 @@ version ``grid_plain``, the plain version of K6) against the JAX package's
 - Random soups (hypothesis): the grid, the port's flat sweep and its host
   BVH agree, as tests/test_properties.py holds the JAX package's three.
 - The wrapper: CPU tensors never load the kernel library, inputs the
-  kernel does not take raise, ``block_threads`` sizes a launch.
+  kernel does not take raise, ``team_width`` picks a launch's lanes a ray
+  from the build's ``cell_load``.
+- K6's team walk (``csrc/grid_cast.cu``), modelled in torch: one cell a
+  step, a cell's candidates L at a time reduced to the least (t, lane),
+  the ``max_iters`` cap counted an action at a time: equal to
+  ``grid_plain`` to the bit on the scenes above at every team width the
+  kernel takes, uncapped and cut short.
 """
 
 import jax.numpy as jnp
@@ -311,27 +317,41 @@ def test_small_max_iters_matches_jax(max_iters, block):
 
 def test_grid_plain_counts_its_work():
     """``grid_plain_counted``: the same hits as ``grid_plain``, the
-    candidates tested, the cell actions, the lockstep's iterations and
-    the closest triangle before the mask test."""
+    candidates tested, the cell actions, the lockstep's iterations, the
+    closest triangle before the mask test and the grid's entries read."""
     rng = np.random.default_rng(7)
     jm = make_sphere_mesh(24, 32)
     mesh = convert.mesh(jm, device="cpu")
     accel = G.build_grid_accel(mesh.vertices, mesh.triangles, device="cpu")
     o, d = (torch.as_tensor(a) for a in _rand_rays(rng, 200))
     arrays = (mesh.vertices, mesh.triangles, mesh.masked_triangles)
-    hits, tests, steps, its, found = G.grid_plain_counted(o, d, accel,
+    hits, walks, its, found, reads = G.grid_plain_counted(o, d, accel,
                                                           *arrays)
     plain = G.grid_plain(o, d, accel, *arrays)
     for f in HIT_FIELDS:
         assert torch.equal(getattr(hits, f), getattr(plain, f)), f
     assert torch.equal(found, hits.prim_id)  # no triangle is masked
-    # Every ray that enters ends in a cell action or at the cap, and a
-    # ray's actions fill at most one iteration each.
-    assert int(hits.valid.sum()) <= tests and 0 < steps
-    assert tests + steps <= 4 * its * 200
-    one, t1, s1, i1, _ = G.grid_plain_counted(o, d, accel, *arrays,
-                                              max_iters=3)
-    assert i1 == 3 and t1 <= tests and s1 <= steps
+    # Every ray that hits tested a candidate and left a cell with some;
+    # every ray that enters ends in a cell action (the cap is not met);
+    # a ray's actions fill at most one iteration each, a candidate action
+    # at most 4 tests.
+    tests, steps = walks.tests, walks.empty + walks.full
+    assert (tests[hits.valid] > 0).all() and (walks.full[hits.valid] > 0).all()
+    assert int(hits.valid.sum()) <= int(tests.sum()) and (steps > 0).any()
+    assert (tests <= 4 * its).all() and (steps <= its).all()
+    assert (walks.empty[tests == 0] == steps[tests == 0]).all()
+    # Each slot tested once or more, each row at most once a slot; a
+    # cell's range is two entries, at most one a step more.
+    assert 0 < reads.rows <= reads.items <= int(tests.sum())
+    assert reads.items <= accel.items.shape[0]
+    assert reads.cell_start <= accel.cell_start.shape[0]
+    assert 2 < reads.cell_start <= int(steps.sum()) + 2 * o.shape[0]
+    _, w1, i1, _, r1 = G.grid_plain_counted(o, d, accel, *arrays,
+                                            max_iters=3)
+    assert r1.items <= reads.items and r1.cell_start <= reads.cell_start
+    assert i1 == 3 and (w1.tests <= tests).all()
+    assert (w1.empty + w1.full <= steps).all()
+    assert (w1.tests + w1.empty + w1.full <= 3 * 4).all()
     # With every third triangle masked, a masked winner is found and then
     # dropped.
     masked = np.zeros(jm.masked_triangles.shape, np.uint32)
@@ -341,9 +361,9 @@ def test_grid_plain_counts_its_work():
                                    np.asarray(jm.triangles), masked),
                       device="cpu")
     arrays = (mm.vertices, mm.triangles, mm.masked_triangles)
-    hits, *_, found = G.grid_plain_counted(o, d, accel, *arrays)
+    hits, *_, found, _ = G.grid_plain_counted(o, d, accel, *arrays)
     assert torch.equal(found, G.grid_plain_counted(
-        o, d, accel, *arrays, check_mask=False)[4])
+        o, d, accel, *arrays, check_mask=False)[3])
     assert torch.equal(hits.prim_id,
                        torch.where(hits.valid, found, INVALID_ID))
     assert int((found != INVALID_ID).sum()) > int(hits.valid.sum())
@@ -430,10 +450,12 @@ def test_inputs_the_kernel_does_not_take_raise(rng, monkeypatch):
         (o, d.t().contiguous().t(), accel, *arrays),
         (o, d, G.GridAccel(accel.cell_start.long(), *(getattr(accel, f) for f
                                                        in ("items", "tri_rows",
-                                                           "lo", "h", "res"))),
+                                                           "lo", "h", "res",
+                                                           "cell_load"))),
          *arrays),
         (o, d, G.GridAccel(accel.cell_start, accel.items,
-                           accel.tri_rows[:-1], accel.lo, accel.h, accel.res),
+                           accel.tri_rows[:-1], accel.lo, accel.h, accel.res,
+                           accel.cell_load),
          *arrays),
         (o, d, accel, arrays[0], arrays[1].int(), arrays[2]),
         (o, d, accel, arrays[0], arrays[1], arrays[2][:1]),
@@ -450,8 +472,197 @@ def test_inputs_the_kernel_does_not_take_raise(rng, monkeypatch):
                     *(a.to("meta") for a in arrays))
 
 
-@pytest.mark.parametrize("n,sms,threads", [(8192, 132, 32), (32000, 132, 128),
-                                           (16000, 132, 64), (100, 132, 32),
-                                           (8192, 64, 128)])
-def test_block_threads(n, sms, threads):
-    assert K.block_threads(n, sms) == threads
+@pytest.mark.parametrize("load,team", [(0.0, 8), (8.0, 8), (16.01, 16),
+                                       (9.08, 8), (9.44, 8), (18.32, 16),
+                                       (44.51, 32), (117.57, 32),
+                                       (243.69, 32)])
+def test_team_width(load, team):
+    """K6's lanes a ray from the grid's ``cell_load``: the least team
+    whose two rounds hold it (the soup of 20,000, config 4's 1,472-triangle
+    sphere, the tracking frame's 20,224, 399,000 and 1,998,000 triangles,
+    the huge triangle's grid)."""
+    accel = G.GridAccel(*(torch.zeros(1),) * 6, cell_load=load)
+    assert K.team_width(accel) == team and team in K.TEAMS
+
+
+@pytest.mark.parametrize("kind,load", [("sphere-24-32", 9.44),
+                                       ("huge", 243.69), ("empty", 0.0)])
+def test_cell_load_is_the_builds(kind, load):
+    """``cell_load`` is the build's sum n^2 / sum n over its cells' counts
+    n, carried by ``to`` and by ``convert.grid_accel``; the huge ground
+    triangle's grid, almost all cells of one candidate, has the load of
+    its few dense ones."""
+    verts, tris, kw = _case(kind)
+    accel = G.build_grid_accel(verts, tris, device="cpu", **kw)
+    n = np.diff(accel.cell_start.numpy()).astype(np.float64)
+    assert accel.cell_load == (pytest.approx((n * n).sum() / n.sum())
+                               if n.sum() else 0.0)
+    assert accel.cell_load == pytest.approx(load, abs=0.005)
+    assert accel.to("cpu").cell_load == accel.cell_load
+    if len(tris):
+        carried = convert.grid_accel(jax_build(verts, tris, **kw),
+                                     device="cpu")
+        assert carried.cell_load == accel.cell_load
+
+
+# ---------------------------------------------------------------------------
+# K6's team walk, modelled in torch
+# ---------------------------------------------------------------------------
+
+
+def _least(t, lanes):
+    """The shuffle reduction of ``csrc/grid_cast.cu``'s ``test_cell``: the
+    least (t, lane) of each row's L lanes, by the butterfly of xor
+    offsets L/2, ..., 1.  Returns (t, lane)."""
+    L = t.shape[1]
+    kt, kl = t.clone(), lanes.expand_as(t).clone()
+    off = L // 2
+    while off:
+        partner = lanes ^ off
+        ot, ol = kt[:, partner], kl[:, partner]
+        take = (ot < kt) | ((ot == kt) & (ol < kl))
+        kt, kl = torch.where(take, ot, kt), torch.where(take, ol, kl)
+        off //= 2
+    return kt[:, 0], kl[:, 0]
+
+
+def _team_walk(o, d, accel, vertices, triangles, words, check_mask, block,
+               max_iters, L):
+    """K6's walk, ``csrc/grid_cast.cu::grid_kernel<L>``, modelled in torch
+    with ``grid_plain``'s operations, every ray at once: one cell a step,
+    its candidates L at a time, candidate k of a cell whose candidates
+    begin at action a tested only where a + k // block < max_iters, the
+    least (t, lane) of the L joining the best hit where strictly smaller;
+    each cell's end or step one action."""
+    from polychase_tpu_torch.engine.raycast import _ray_hits, _unmasked
+
+    n = o.shape[0]
+    if triangles.shape[0] == 0:
+        return G.grid_plain(o, d, accel, vertices, triangles, words,
+                            check_mask, block, max_iters)
+    cs, items, rows = accel.cell_start, accel.items, accel.tri_rows
+    res, glo, h = accel.res, accel.lo, accel.h
+    t0, t1 = G._slab_entry(glo, glo + h * res.to(torch.float32), o, d)
+    t_start = torch.clamp_min(t0, 0.0)
+    live = (t1 >= t_start) & (t0 < float("inf")) & (max_iters > 0)
+    c = torch.floor((o + d * t_start[:, None] - glo) / h)
+    c = torch.where(torch.isnan(c), 0.0, c)
+    cell = torch.minimum(torch.clamp_min(c, 0.0),
+                         (res - 1).to(torch.float32)).to(torch.int32)
+    step = torch.sign(d).to(torch.int32)
+    d0 = d == 0.0
+    safe_d = torch.where(d0, 1.0, d)
+    nb = glo + (cell + (step > 0).to(torch.int32)).to(torch.float32) * h
+    tmax = torch.where(d0, float("inf"), (nb - o) / safe_d)
+    tdelta = torch.where(d0, float("inf"), torch.abs(h / safe_d))
+
+    lanes = torch.arange(L)
+    axes = torch.arange(3)
+    rows_of = torch.arange(n)
+    acts = torch.zeros(n, dtype=torch.int64)
+    best_t = torch.full((n,), float("inf"))
+    best_uv = torch.zeros((n, 2))
+    best_id = torch.full((n,), INVALID_ID, dtype=torch.int64)
+    while bool(live.any()):
+        flat = ((cell[:, 0] * res[1] + cell[:, 1]) * res[2]
+                + cell[:, 2]).long()
+        cb = torch.where(live, cs[flat], 0)
+        ce = torch.where(live, cs[flat + 1], 0)
+        full = live & (cb < ce)
+        k0, going = cb.clone(), full.clone()
+        while bool(going.any()):
+            k = k0[:, None] + lanes[None]
+            take = (going[:, None] & (k < ce[:, None])
+                    & (acts[:, None] + (k - cb[:, None]) // block
+                       < max_iters))
+            ids = items[k.clamp(0, items.shape[0] - 1)].long()
+            r = rows[ids]
+            t, u, v, hit = G._moller_block(
+                o[:, None], d[:, None], r[..., 0:3], r[..., 3:6],
+                r[..., 6:9])
+            t = torch.where(hit & take, t, float("inf"))
+            kt, kl = _least(t, lanes)
+            closer = going & (kt < best_t)
+            uv = torch.stack([u[rows_of, kl], v[rows_of, kl]], dim=-1)
+            best_uv = torch.where(closer[:, None], uv, best_uv)
+            best_id = torch.where(closer, ids[rows_of, kl], best_id)
+            best_t = torch.where(closer, kt, best_t)
+            k0 = k0 + L
+            going = going & (k0 < ce) & (acts + (k0 - cb) // block
+                                         < max_iters)
+        acts = torch.where(full, acts + (ce - cb + block - 1) // block, acts)
+        live = live & (acts < max_iters)
+        # The cell is exhausted: end at its exit, or step on, or end where
+        # the step leaves the grid.
+        live = live & ~(best_t <= torch.amin(tmax, dim=-1))
+        onehot = torch.argmin(tmax, dim=-1)[:, None] == axes[None, :]
+        moved = cell + torch.where(onehot, step, 0)
+        live = live & ~((moved < 0) | (moved >= res)).any(dim=-1)
+        cell = torch.where(live[:, None], moved, cell)
+        tmax = torch.where(live[:, None] & onehot, tmax + tdelta, tmax)
+        acts = torch.where(live, acts + 1, acts)
+        live = live & (acts < max_iters)
+    valid = _unmasked(words, best_id, check_mask)
+    q = vertices[triangles[torch.where(valid, best_id, 0)]]
+    return _ray_hits(q[:, 0], q[:, 1], q[:, 2], best_uv, best_t, best_id,
+                     valid)
+
+
+def _walk_scene(kind):
+    """(mesh, origins, dirs, build keywords) of the model's scenes."""
+    rng = np.random.default_rng(8)
+    if kind == "axis":
+        o = np.concatenate([rng.uniform(-0.5, 0.5, (64, 3)),
+                            rng.uniform(-3, 3, (64, 3))]).astype(np.float32)
+        d = np.concatenate([np.eye(3), -np.eye(3)])[
+            rng.integers(0, 6, 128)].astype(np.float32)
+        return convert.mesh(make_sphere_mesh(10, 14), device="cpu"), o, d, {}
+    if kind == "masked":
+        base = make_sphere_mesh(12, 16)
+        masked = np.zeros(base.masked_triangles.shape, np.uint32)
+        for t in range(0, int(base.triangles.shape[0]), 3):
+            masked = set_mask_bits(masked, t, "mask")
+        jm = JMesh.create(np.asarray(base.vertices),
+                          np.asarray(base.triangles), masked)
+        return (convert.mesh(jm, device="cpu"), *_rand_rays(rng, 129), {})
+    if kind == "thin":
+        verts, tris = _thin(rng, 4000)
+        # From above the centroids of 96 triangles, nearly straight down.
+        at = verts[tris[rng.choice(len(tris), 96, replace=False)]].mean(1)
+        o = (at + [0, 0, 2.0]).astype(np.float32)
+        d = (rng.normal(0, 1e-4, (96, 3)) + [0, 0, -1]).astype(np.float32)
+        return (convert.mesh(JMesh.create(verts, tris), device="cpu"), o, d,
+                dict(max_cells=1 << 14))
+    verts, tris, kw = _case({"sphere": "sphere-24-32",
+                             "twice": "sphere-24-32"}.get(kind, kind))
+    if kind == "twice":  # every triangle twice: each hit an exact-t tie
+        tris = np.concatenate([tris, tris])
+    radius = {"soup": 6.0, "huge": 8.0}.get(kind, 4.0)
+    o, d = _rand_rays(rng, 129, radius)
+    if kind == "huge":
+        d[:32] = np.array([0.1, 0.05, -1.0], np.float32)
+    return (convert.mesh(JMesh.create(verts, tris), device="cpu"), o, d, kw)
+
+
+@pytest.mark.parametrize("max_iters,block", [(200_000, 4), (1, 4), (6, 4),
+                                             (6, 1), (8, 4)])
+@pytest.mark.parametrize("team", K.TEAMS)
+@pytest.mark.parametrize("kind", ["sphere", "soup", "masked", "axis", "huge",
+                                  "thin", "empty", "twice"])
+def test_team_walk_matches_grid_plain(kind, team, max_iters, block):
+    """The ordering argument of K6's team walk, on this host: a torch model
+    of it (``_team_walk``) equals ``grid_plain`` to the bit on every field,
+    at team widths 8, 16 and 32, uncapped and cut at 1, 6 and 8 actions
+    with blocks of 4 and 1; on the sphere with every triangle twice the
+    lower id, first in visiting order, wins each tie."""
+    mesh, o, d, kw = _walk_scene(kind)
+    accel = G.build_grid_accel(mesh.vertices, mesh.triangles, device="cpu",
+                               **kw)
+    o, d = torch.as_tensor(o), torch.as_tensor(d)
+    arrays = (mesh.vertices, mesh.triangles, mesh.masked_triangles)
+    want = G.grid_plain(o, d, accel, *arrays, True, block, max_iters)
+    got = _team_walk(o, d, accel, *arrays, True, block, max_iters, team)
+    for f in HIT_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    if kind != "empty" and max_iters > 6:
+        assert bool(want.valid.any())

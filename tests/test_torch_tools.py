@@ -75,8 +75,8 @@ def _fallbacks(tree: ast.AST) -> set:
 
 
 def test_the_tools_are_found():
-    assert {"crossover", "k1_compare", "k5_compare", "refine_compare",
-            "segments_compare"} <= set(TOOLS)
+    assert {"crossover", "k1_compare", "k5_compare", "k6_compare",
+            "refine_compare", "segments_compare"} <= set(TOOLS)
 
 
 @pytest.mark.parametrize("tool", TOOLS)
