@@ -1,0 +1,15 @@
+"""The harness's own tests.  They import neither JAX nor the JAX package:
+the machine with the card has neither."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips on machines without one"
+    )
