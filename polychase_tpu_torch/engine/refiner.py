@@ -24,6 +24,12 @@ back one vector of scalars, its one host sync.  The refreshed cost of an
 accepted step rides in the next iteration's read; the progress callback of
 that step runs once it has landed, before anything of the next iteration is
 applied, so callback, cancel and stats keep the reference's semantics.
+``refine_trajectory``'s host phases are ``torch.profiler`` spans beside
+the device stages' labels: ``refine.data`` (the DB read),
+``refine.setup`` (the uploads, the first refresh and its cost),
+``refine.iteration`` (one pass of the LM loop) and ``refine.finish`` (the
+last read and the write-back), so that a trace charges each idle stretch
+of the device to one of them.
 The prim refresh casts on the device, or through the host BVH of
 the port's ``native`` for meshes of ``BVH_TRIANGLE_THRESHOLD`` triangles
 or more.
@@ -929,52 +935,56 @@ def refine_trajectory(database, traj: CameraTrajectory, model_matrix,
         if ftol > 0.0:
             opts = replace(opts, function_tol=ftol)
 
-    own_db = isinstance(database, str)
-    if own_db:
-        database = Database(database)
-    try:
-        data = build_refiner_data(database, traj, mesh, model_matrix,
-                                  device=device)
-    finally:
+    with record_function("refine.data"):
+        own_db = isinstance(database, str)
         if own_db:
-            database.close()
+            database = Database(database)
+        try:
+            data = build_refiner_data(database, traj, mesh, model_matrix,
+                                      device=device)
+        finally:
+            if own_db:
+                database.close()
 
-    opt_f, opt_pp = bool(optimize_focal_length), bool(optimize_principal_point)
-    ppc = 9 if (opt_f or opt_pp) else 6
-    loss_type, loss_scale = int(opts.loss_type), float(opts.loss_scale)
-    model = torch.as_tensor(np.asarray(model_matrix, np.float32),
-                            device=device)
-    model_inv = torch.as_tensor(
-        np.linalg.inv(np.asarray(model_matrix, np.float64)).astype(
-            np.float32), device=device)
-    tri_corners = mesh.triangle_corners()
-    bounds = C.intrinsics_bounds(
-        traj.get(traj.first_frame).intrinsics.to(device))
-    _log.info("refine segment [%d, %d]: %d frames, %d edges, %d keypoint "
-              "slots", traj.first_frame, traj.last_frame, traj.count,
-              int(data.src_frame.shape[0]), int(data.kps.shape[1]))
+    with record_function("refine.setup"):
+        opt_f = bool(optimize_focal_length)
+        opt_pp = bool(optimize_principal_point)
+        ppc = 9 if (opt_f or opt_pp) else 6
+        loss_type, loss_scale = int(opts.loss_type), float(opts.loss_scale)
+        model = torch.as_tensor(np.asarray(model_matrix, np.float32),
+                                device=device)
+        model_inv = torch.as_tensor(
+            np.linalg.inv(np.asarray(model_matrix, np.float64)).astype(
+                np.float32), device=device)
+        tri_corners = mesh.triangle_corners()
+        bounds = C.intrinsics_bounds(
+            traj.get(traj.first_frame).intrinsics.to(device))
+        _log.info("refine segment [%d, %d]: %d frames, %d edges, %d keypoint "
+                  "slots", traj.first_frame, traj.last_frame, traj.count,
+                  int(data.src_frame.shape[0]), int(data.kps.shape[1]))
 
-    params = traj_to_params(traj, device=device)
-    refresh = _make_prim_refresher(data, mesh, model, model_inv, tri_corners,
-                                   loss_scale, loss_type, devices=devices)
-    kw = dict(loss_type=loss_type, opt_f=opt_f, opt_pp=opt_pp, ppc=ppc)
-    if len(devices) > 1:
-        from ..parallel.sharded import EdgeShards
+        params = traj_to_params(traj, device=device)
+        refresh = _make_prim_refresher(data, mesh, model, model_inv,
+                                       tri_corners, loss_scale, loss_type,
+                                       devices=devices)
+        kw = dict(loss_type=loss_type, opt_f=opt_f, opt_pp=opt_pp, ppc=ppc)
+        if len(devices) > 1:
+            from ..parallel.sharded import EdgeShards
 
-        edges = EdgeShards(devices, data, tri_corners, model, model_inv)
+            edges = EdgeShards(devices, data, tri_corners, model, model_inv)
 
-        def normal_equations(p, pr):
-            return edges.normal_equations(p, pr, loss_scale, **kw)
-    else:
-        def normal_equations(p, pr):
-            return build_normal_equations(p, data, pr, tri_corners, model,
-                                          model_inv, loss_scale, **kw)
-    prims, cost0 = refresh(params)
-    cost = float(cost0)
-    band = compute_band(data, traj.count, ppc)
-    stats = dict(iterations=0, initial_cost=cost, cost=cost,
-                 lambda_=float(opts.initial_lambda), invalid_steps=0,
-                 step_norm=-1.0, grad_norm=-1.0)
+            def normal_equations(p, pr):
+                return edges.normal_equations(p, pr, loss_scale, **kw)
+        else:
+            def normal_equations(p, pr):
+                return build_normal_equations(p, data, pr, tri_corners, model,
+                                              model_inv, loss_scale, **kw)
+        prims, cost0 = refresh(params)
+        cost = float(cost0)
+        band = compute_band(data, traj.count, ppc)
+        stats = dict(iterations=0, initial_cost=cost, cost=cost,
+                     lambda_=float(opts.initial_lambda), invalid_steps=0,
+                     step_norm=-1.0, grad_norm=-1.0)
 
     def emit() -> bool:
         if callback is None:
@@ -1001,82 +1011,86 @@ def refine_trajectory(database, traj: CameraTrajectory, model_matrix,
     pending_cost = None
     stagnated = False
     while stats["iterations"] < opts.max_iterations:
-        if rebuild:
-            JtJ, Jtr = normal_equations(params, prims)
-        params_new, vec = try_lm_step(
-            JtJ, Jtr, params, data, prims, tri_corners, model, model_inv,
-            loss_scale, lam, bounds, band=band, **kw)
-        if pending_cost is not None:
-            vec = torch.cat([vec, pending_cost.reshape(1)])
-        h = _read_scalars(vec)
-        if pending_cost is not None:
-            pending_cost = None
-            stats["cost"] = h[5]
-            if not emit():
-                break
-        grad_norm, solve_ok, step_norm, cost_new, expected = h[:5]
-        if rebuild:
-            stats["grad_norm"] = grad_norm
-            if grad_norm < opts.gradient_tol:
-                break
+        with record_function("refine.iteration"):
+            if rebuild:
+                JtJ, Jtr = normal_equations(params, prims)
+            params_new, vec = try_lm_step(
+                JtJ, Jtr, params, data, prims, tri_corners, model, model_inv,
+                loss_scale, lam, bounds, band=band, **kw)
+            if pending_cost is not None:
+                vec = torch.cat([vec, pending_cost.reshape(1)])
+            h = _read_scalars(vec)
+            if pending_cost is not None:
+                pending_cost = None
+                stats["cost"] = h[5]
+                if not emit():
+                    break
+            grad_norm, solve_ok, step_norm, cost_new, expected = h[:5]
+            if rebuild:
+                stats["grad_norm"] = grad_norm
+                if grad_norm < opts.gradient_tol:
+                    break
 
-        if solve_ok == 0.0:
-            stats["invalid_steps"] += 1
-            if lam >= opts.max_lambda:
+            if solve_ok == 0.0:
+                stats["invalid_steps"] += 1
+                if lam >= opts.max_lambda:
+                    break
+                lam = min(opts.max_lambda, lam * v)
+                v *= 2.0
+                rebuild = False
+                stats["iterations"] += 1
+                continue
+
+            stats["step_norm"] = step_norm
+            if step_norm < opts.step_tol:
                 break
-            lam = min(opts.max_lambda, lam * v)
-            v *= 2.0
-            rebuild = False
+            # Cost stagnation: |attempted change| <= ftol·cost (0 disables).
+            stagnated = opts.function_tol > 0.0 and (
+                abs(cost_new - stats["cost"])
+                <= opts.function_tol * stats["cost"]
+            )
+            if cost_new < stats["cost"]:
+                actual = cost_new - stats["cost"]
+                rho = actual / expected if expected != 0 else -1.0
+                if rho > 0:
+                    factor = max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3)
+                    lam = float(np.clip(lam * factor, opts.min_lambda,
+                                        opts.max_lambda))
+                params = params_new
+                v, rebuild = 2.0, True
+                # The parameters moved: refresh the intersection cache.
+                prims, pending_cost = refresh(params)
+            else:
+                stats["invalid_steps"] += 1
+                if lam >= opts.max_lambda:
+                    break
+                lam = min(opts.max_lambda, lam * v)
+                v *= 2.0
+                rebuild = False
+
             stats["iterations"] += 1
-            continue
-
-        stats["step_norm"] = step_norm
-        if step_norm < opts.step_tol:
-            break
-        # Cost stagnation: |attempted change| <= ftol·cost (0 disables).
-        stagnated = opts.function_tol > 0.0 and (
-            abs(cost_new - stats["cost"]) <= opts.function_tol * stats["cost"]
-        )
-        if cost_new < stats["cost"]:
-            actual = cost_new - stats["cost"]
-            rho = actual / expected if expected != 0 else -1.0
-            if rho > 0:
-                factor = max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3)
-                lam = float(np.clip(lam * factor, opts.min_lambda,
-                                    opts.max_lambda))
-            params = params_new
-            v, rebuild = 2.0, True
-            # The parameters moved: refresh the intersection cache.
-            prims, pending_cost = refresh(params)
-        else:
-            stats["invalid_steps"] += 1
-            if lam >= opts.max_lambda:
+            stats["lambda_"] = lam
+            if stagnated:
                 break
-            lam = min(opts.max_lambda, lam * v)
-            v *= 2.0
-            rebuild = False
+            if pending_cost is None and not emit():
+                break
 
-        stats["iterations"] += 1
+    with record_function("refine.finish"):
+        if pending_cost is not None:
+            # The loop ended on an accepted step: its cost is still on the
+            # device, and it was reported only if the loop ran out of
+            # iterations (a stagnation exit reports only at the end).
+            stats["cost"] = float(pending_cost)
+            if not stagnated:
+                emit()
+
         stats["lambda_"] = lam
-        if stagnated:
-            break
-        if pending_cost is None and not emit():
-            break
-    if pending_cost is not None:
-        # The loop ended on an accepted step: its cost is still on the
-        # device, and it was reported only if the loop ran out of
-        # iterations (a stagnation exit reports only at the end).
-        stats["cost"] = float(pending_cost)
-        if not stagnated:
-            emit()
+        _log.info("refine done: cost %.4f -> %.4f in %d iterations (%d "
+                  "invalid steps)", stats["initial_cost"], stats["cost"],
+                  stats["iterations"], stats["invalid_steps"])
+        emit()
 
-    stats["lambda_"] = lam
-    _log.info("refine done: cost %.4f -> %.4f in %d iterations (%d invalid "
-              "steps)", stats["initial_cost"], stats["cost"],
-              stats["iterations"], stats["invalid_steps"])
-    emit()
-
-    refined = params_to_traj(params, traj)
-    for fid in range(traj.first_frame, traj.last_frame + 1):
-        traj.set(fid, refined.get(fid))
+        refined = params_to_traj(params, traj)
+        for fid in range(traj.first_frame, traj.last_frame + 1):
+            traj.set(fid, refined.get(fid))
     return traj

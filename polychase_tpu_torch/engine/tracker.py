@@ -17,6 +17,16 @@ trajectory, with the reference's streaming and cancel semantics.  One path
 serves every segment length.  The frame step (``_cast_and_solve``) has a
 leading segment axis: the sequential chain steps one segment,
 ``parallel.tracking`` steps S of them with one ray cast and one PnP launch.
+
+The chain's host phases are ``torch.profiler`` spans, so that a trace
+charges each idle stretch of the device to the phase the host was in:
+``track.setup`` (the plan, the initial carry and the uploads, once a pass),
+``track.pack`` (a chunk's inputs), ``track.step`` (one frame step) and
+``track.deliver`` (a chunk's results to the callback and the trajectory).
+The read of a chunk's results lies outside them: the host waits there
+while the device works.  A span opens once a frame or a chunk, not once a
+pass: the benchmark's reduction (``portbench/trace.py``) looks for the
+span open at an idle moment only among the 4096 host events before it.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..io.database import Database
 
@@ -219,94 +230,99 @@ def _track_chain(database, camera_traj, frames, direction, model_matrix,
                  mesh: Mesh, callback, opt_f, opt_pp, opts, device):
     first = camera_traj.first_frame
     F = camera_traj.count
-    plan = _plan(database, camera_traj, frames, direction)
+    with record_function("track.setup"):
+        plan = _plan(database, camera_traj, frames, direction)
 
-    ci = camera_traj.get(frames[0] - direction).intrinsics.to("cpu")
-    const5 = torch.tensor(
-        [float(ci.aspect_ratio), float(ci.width), float(ci.height),
-         float(ci.sign), MAX_INLIER_ERROR],
-        dtype=torch.float32, device=device,
-    )
-    # Initial carry from the host trajectory.
-    q0 = np.zeros((F, 4), np.float32)
-    q0[:, 0] = 1.0
-    t0 = np.zeros((F, 3), np.float32)
-    in0 = np.zeros((F, 4), np.float32)
-    in0[:] = [float(ci.fx), float(ci.fy), float(ci.cx), float(ci.cy)]
-    for i, state in enumerate(camera_traj.states):
-        if state is not None:
-            q0[i] = _host(state.pose.q)
-            t0[i] = _host(state.pose.t)
-            it = state.intrinsics
-            in0[i] = [float(it.fx), float(it.fy), float(it.cx), float(it.cy)]
-    dev = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-    carry = (dev(q0[None]), dev(t0[None]), dev(in0[None]))
-
-    # One padded shape for the run: G groups of K keypoints per frame.
-    G = max([len(gs) for _, _, gs in plan] + [1])
-    K = max([g[1].shape[0] for _, _, gs in plan for g in gs] + [1])
-
-    # Clip-wide keypoint table on the device; each frame gathers its
-    # source keypoints by index.
-    src_frames = sorted({s for _, _, gs in plan for s, _, _ in gs})
-    kps = database.read_keypoints_range(
-        min(src_frames, default=0), max(src_frames, default=0)
-    )
-    Kmax = max([kps.get(f, np.empty((0, 2))).shape[0] for f in src_frames]
-               + [1])
-    kps_all = np.zeros((1, F, Kmax, 2), np.float32)
-    for f in src_frames:
-        k = kps.get(f, np.empty((0, 2), np.float32))
-        kps_all[0, f - first, : k.shape[0]] = k
-    _check_flow_indices(plan, kps)
-    kps_all = dev(kps_all)
-
-    model = dev(np.asarray(_host(model_matrix), np.float32))
-    model_inv = dev(
-        np.linalg.inv(np.asarray(_host(model_matrix), np.float64)).astype(
-            np.float32
+        ci = camera_traj.get(frames[0] - direction).intrinsics.to("cpu")
+        const5 = torch.tensor(
+            [float(ci.aspect_ratio), float(ci.width), float(ci.height),
+             float(ci.sign), MAX_INLIER_ERROR],
+            dtype=torch.float32, device=device,
         )
-    )
+        # Initial carry from the host trajectory.
+        q0 = np.zeros((F, 4), np.float32)
+        q0[:, 0] = 1.0
+        t0 = np.zeros((F, 3), np.float32)
+        in0 = np.zeros((F, 4), np.float32)
+        in0[:] = [float(ci.fx), float(ci.fy), float(ci.cx), float(ci.cy)]
+        for i, state in enumerate(camera_traj.states):
+            if state is not None:
+                q0[i] = _host(state.pose.q)
+                t0[i] = _host(state.pose.t)
+                it = state.intrinsics
+                in0[i] = [float(it.fx), float(it.fy), float(it.cx),
+                          float(it.cy)]
+        dev = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        carry = (dev(q0[None]), dev(t0[None]), dev(in0[None]))
+
+        # One padded shape for the run: G groups of K keypoints per frame.
+        G = max([len(gs) for _, _, gs in plan] + [1])
+        K = max([g[1].shape[0] for _, _, gs in plan for g in gs] + [1])
+
+        # Clip-wide keypoint table on the device; each frame gathers its
+        # source keypoints by index.
+        src_frames = sorted({s for _, _, gs in plan for s, _, _ in gs})
+        kps = database.read_keypoints_range(
+            min(src_frames, default=0), max(src_frames, default=0)
+        )
+        Kmax = max([kps.get(f, np.empty((0, 2))).shape[0] for f in src_frames]
+                   + [1])
+        kps_all = np.zeros((1, F, Kmax, 2), np.float32)
+        for f in src_frames:
+            k = kps.get(f, np.empty((0, 2), np.float32))
+            kps_all[0, f - first, : k.shape[0]] = k
+        _check_flow_indices(plan, kps)
+        kps_all = dev(kps_all)
+
+        model = dev(np.asarray(_host(model_matrix), np.float32))
+        model_inv = dev(
+            np.linalg.inv(np.asarray(_host(model_matrix), np.float64)).astype(
+                np.float32
+            )
+        )
 
     for c0 in range(0, len(plan), FLUSH_FRAMES):
         chunk = plan[c0:c0 + FLUSH_FRAMES]
         # Exact-f32 per-chunk inputs, uploaded once per chunk.
-        steps = pack_steps(chunk, first, G, K, device)
+        with record_function("track.pack"):
+            steps = pack_steps(chunk, first, G, K, device)
         vecs, counts = [], []
         for r in range(len(chunk)):
-            vec, count = _cast_and_solve(
-                mesh, model, model_inv, carry, const5, kps_all,
-                *(a[r:r + 1] for a in steps), opt_f, opt_pp, opts,
-            )
+            with record_function("track.step"):
+                vec, count = _cast_and_solve(
+                    mesh, model, model_inv, carry, const5, kps_all,
+                    *(a[r:r + 1] for a in steps), opt_f, opt_pp, opts,
+                )
             vecs.append(vec)
             counts.append(count)
         vecs_h = torch.cat(vecs).cpu().numpy()
         counts_h = torch.cat(counts).cpu().numpy()
 
-        for r, (frame_id, _, _) in enumerate(chunk):
-            vec, count = vecs_h[r], int(counts_h[r])
-            if count < 3:
-                _log.info(
-                    "frame %d: only %d correspondences, cannot solve",
-                    frame_id, count,
-                )
-                raise TrackingError(
-                    f"Could not track to frame: {frame_id}. "
-                    "Not enough features."
-                )
-            camera = result_camera(vec, ci)
-            if callback is not None:
-                ok = callback(
-                    FrameTrackingResult(
-                        frame=frame_id, pose=camera.pose,
-                        intrinsics=camera.intrinsics,
-                        bundle_stats=result_stats(vec),
-                        inlier_ratio=float(vec[18]),
+        with record_function("track.deliver"):
+            for r, (frame_id, _, _) in enumerate(chunk):
+                vec, count = vecs_h[r], int(counts_h[r])
+                if count < 3:
+                    _log.info(
+                        "frame %d: only %d correspondences, cannot solve",
+                        frame_id, count,
                     )
-                )
-                if not ok:
-                    return
-            camera_traj.set(frame_id, camera)
+                    raise TrackingError(
+                        f"Could not track to frame: {frame_id}. "
+                        "Not enough features."
+                    )
+                camera = result_camera(vec, ci)
+                if callback is not None:
+                    ok = callback(
+                        FrameTrackingResult(
+                            frame=frame_id, pose=camera.pose,
+                            intrinsics=camera.intrinsics,
+                            bundle_stats=result_stats(vec),
+                            inlier_ratio=float(vec[18]),
+                        )
+                    )
+                    if not ok:
+                        return
+                camera_traj.set(frame_id, camera)
 
 
 def track_camera_trajectory(
