@@ -45,10 +45,12 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    over a 20,224-triangle sphere with 2048 keypoints per frame and 0.3 px
    flow noise, written to a flow DB (its keypoints cast on a CPU copy of
    the mesh, by the plain route, so that the truth does not pass through
-   K5), tracked through ``track_sequence`` forward over 119 frames,
-   backward over 60, and over 24 frames with free focal length and
-   principal point.  Checks that every frame step launched K1 and K5 once
-   and that every pose lies within the ground-truth thresholds, and holds
+   a cast kernel), tracked through ``track_sequence`` forward over 119
+   frames, backward over 60, and over 24 frames with free focal length
+   and principal point.  Checks that every frame step launched K1 once
+   and the cast's kernel once (K6 where ``raycast.grid_route`` sends the
+   mesh to its grid, K5 else; the other never), and that every pose lies
+   within the ground-truth thresholds, and holds
    K1 against its plain version on solver inputs recorded from a warm-up
    run of the same path (N = 8192), timing the last one with its launch
    shape, time per LM iteration and floor.
@@ -61,8 +63,9 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    bit, the median translation error falls, every rotation error ≤ 2e-3
    rad) and a run under ``torch.profiler`` for the device time of the prim
    refresh ray cast, the normal equations, the solve and the cost, and the
-   device busy share; K5 launched once per prim refresh of the timed run
-   (the device route, below ``refiner.BVH_TRIANGLE_THRESHOLD``).  The
+   device busy share; the cast's kernel (item 6) launched once per prim
+   refresh of the timed run (the device route, below
+   ``refiner.BVH_TRIANGLE_THRESHOLD``).  The
    clip's DB is cast on a CPU copy of the mesh, as the tracking truth is.
    One normal system of the problem (P = 2250, nb = 32, bs = 72) is
    solved by the banded and the dense solve, timed, and the two steps
@@ -83,8 +86,9 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    ray; positions, normals and barycentrics within 1e-6 relative, the rays
    equal to the bit counted.  Prints per scene both times, the bound and
    its share, the launch plan and the launches; then the device kernels
-   of one tracking frame's ``raycast_grouped`` (K5 alone), forward
-   tracking frames/s with K5 and with the plain route, in turns, and a
+   of one tracking frame's sweep route (``raycast.sweep_grouped``, K5
+   alone), forward tracking frames/s with K5 and with the plain route, in
+   turns (the sweep route forced whatever the mesh's size), and a
    profiled K5 run's busy share and device time by kernel.
 9. K6 phase: K6, the whole ``grid_raycast`` in one launch (a team of
    lanes walking each ray's cells), against its plain version
@@ -139,8 +143,9 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     the tracking clip in 4 segments of 30 frames seeded from the truth at
     frames 0, 30, 60 and 90 (K1 at S = 4, N = 8192 a solve): every pose
     within the ground-truth thresholds and within 1e-4 (q) / 1e-3 (t) of
-    the sequential ``track_camera_trajectory`` from the same seed, K1 and K5
-    launched once per step (29), not once per segment frame (116), and K1
+    the sequential ``track_camera_trajectory`` from the same seed, K1 and
+    the cast's kernel (item 6) launched once per step (29), not once per
+    segment frame (116), and K1
     held against its plain version on S = 4 inputs recorded from the path.
     ``refine_segments`` on config 4's clip split at keyframes 0, 50, 100,
     150, 200, 249 (5 segments of ~51 frames, the keyframes true, so the
@@ -212,7 +217,7 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     temporary directory outside the checkout, its shim imported under the
     fake bpy of ``tests/`` with the checkout's package set aside and a fresh
     user cache as ``XDG_CACHE_HOME``: the package comes from the zip, no
-    jax is loaded, the host library and K1-K5 build from the zip's sources
+    jax is loaded, the host library and K1-K6 build from the zip's sources
     into the user cache.  With ``core.DEVICE`` left at None (the card):
     ``PC_OT_AnalyzeVideo`` through its modal loop on the 24-frame panning
     clip (served as Blender's float pixels), its DB equal to the surface
@@ -223,8 +228,8 @@ Usage, from the root of a checkout on a machine with a CUDA card:
     back by the add-on's own code, and within the ground-truth thresholds
     (the difference from the surface phase's OpenCV poses printed); one
     8-pin drag of pin 2 through pin mode within ``PIN_ROUTE_ATOL`` of the
-    pin phase's drag; K1-K5 launched as the runs need (K5 once a tracked
-    frame).  Then analyze and
+    pin phase's drag; K1-K6 launched as the runs need (the cast's kernel,
+    item 6, once a tracked frame).  Then analyze and
     tracking frames/s through the surface and through the add-on, in turns
     (surface, add-on, add-on, surface).
 16. Prints the card, the kernels' JSON line (time, plain time, bound and
@@ -992,8 +997,8 @@ def main_path_phase(device, workdir, *, n_frames=N_FRAMES,
     the host).  Returns K1's launches, forward frames/s, K1's largest
     difference from its plain version on recorded inputs, and what later
     phases reuse: the DB, the mesh's arrays, the ground truth, the forward
-    run's results, the run itself, K5's launches and a frame's recorded
-    sweep inputs."""
+    run's results, the run itself, the cast's kernel and launches and a
+    frame's recorded cast inputs."""
     from polychase_tpu_torch.engine.camera import OPENCV, Intrinsics
     from polychase_tpu_torch.engine.geometry import (
         Mesh, SceneTransformations,
@@ -1001,7 +1006,7 @@ def main_path_phase(device, workdir, *, n_frames=N_FRAMES,
     from polychase_tpu_torch.engine.levmarq import BundleOptions
     from polychase_tpu_torch.engine.pose import quat_to_mat_np
     from polychase_tpu_torch.engine import tracker
-    from polychase_tpu_torch.kernels import pnp_lm, raycast_sweep
+    from polychase_tpu_torch.kernels import grid_cast, pnp_lm, raycast_sweep
     from polychase_tpu_torch.synthetic import (
         build_flow_db, orbit_poses, uv_sphere,
     )
@@ -1067,62 +1072,69 @@ def main_path_phase(device, workdir, *, n_frames=N_FRAMES,
 
     db_path = os.path.join(workdir, "track.db")
     t0 = time.perf_counter()
-    # The truth's keypoints are cast by the plain sweep on a CPU copy of
-    # the mesh, not by K5, which the path under test runs.
+    # The truth's keypoints are cast by the plain route on a CPU copy of
+    # the mesh, not by the kernel that the path under test runs.
     build_flow_db(db_path, Mesh.create(verts, tris, device="cpu"), FOCAL,
                   WIDTH, HEIGHT, poses, rng, keypoints, NOISE_PX)
     print(f"  flow DB written in {time.perf_counter() - t0:.2f} s (cast on "
           f"the host)")
     # Warm-up (first launches, allocator), recording the solver's and the
-    # sweep's inputs: K1 and K5 are then held against their plain versions
-    # on the very tensors the main path hands them.
+    # cast's inputs: K1 and the cast kernels are then held against their
+    # plain versions on the very tensors the main path hands them.
     inputs, sweeps = [], []
-    real, real_sweep = tracker.solve_arrays_lm, raycast_sweep.raycast_hits
+    real, real_cast = tracker.solve_arrays_lm, tracker.raycast_grouped
 
     def record(*args, **kw):
         inputs.append((args, kw))
         return real(*args, **kw)
 
-    def record_sweep(*args, **kw):
-        sweeps.append(args[:6])
-        return real_sweep(*args, **kw)
+    def record_cast(m, origins, dirs, check_mask=True):
+        sweeps.append((origins.contiguous(), dirs.contiguous(), m.vertices,
+                       m.triangles, m.masked_triangles, check_mask))
+        return real_cast(m, origins, dirs, check_mask)
 
     tracker.solve_arrays_lm = record
-    raycast_sweep.raycast_hits = record_sweep
+    tracker.raycast_grouped = record_cast
     try:
         run(db_path, 0, 8)
     finally:
         tracker.solve_arrays_lm = real
-        raycast_sweep.raycast_hits = real_sweep
+        tracker.raycast_grouped = real_cast
     path_err, _ = main_path_inputs_check(inputs)
 
-    pnp_lm.launches = raycast_sweep.launches = 0
-    # K5's library counts the launches the runtime accepted.
-    queued0 = raycast_sweep.cuda_launches()
+    kernel = cast_kernel(len(tris))
+    library = grid_cast if kernel == "K6" else raycast_sweep
+    pnp_lm.launches = 0
+    casts0 = cast_launches()
+    # The cast kernel's library counts the launches the runtime accepted.
+    queued0 = library.cuda_launches()
     fwd, fwd_s = run(db_path, 0, n_frames - 1)
     half = n_frames // 2
     bwd, _ = run(db_path, half, 0)
     seg = min(24, n_frames - 1)
     opt, _ = run(db_path, 0, seg, opt=True)
-    launches, k5_launches = pnp_lm.launches, raycast_sweep.launches
-    k5_queued = raycast_sweep.cuda_launches() - queued0
-
+    launches = pnp_lm.launches
     solved = (n_frames - 1) + half + seg
+    _, cast_n, cast_fail = route_casts(casts0, len(tris), solved)
+    queued = library.cuda_launches() - queued0
+
     check("forward", fwd, n_frames - 1)
     check("backward", bwd, half)
     check("opt f+pp", opt, seg, opt=True)
-    if (launches, k5_launches, k5_queued) != (solved,) * 3:
+    if cast_fail or (launches, queued) != (solved, solved):
         raise AssertionError(
-            f"K1 and K5 launched {launches} and {k5_launches} times "
-            f"({k5_queued} CUDA launches of K5) for {solved} solved frames")
+            f"K1 and {kernel} launched {launches} and {cast_n} times "
+            f"({queued} CUDA launches of {kernel}) for {solved} solved "
+            f"frames" + (f"; {cast_fail}" if cast_fail else ""))
     fps = (n_frames - 1) / fwd_s
-    print(f"  K1 / K5 launches on the main path: {launches} / {k5_launches} "
-          f"(= {solved} frame steps; K5's CUDA launches {k5_queued})")
+    print(f"  K1 / {kernel} launches on the main path ({len(tris)} "
+          f"triangles, {kernel}'s route): {launches} / {cast_n} (= {solved} "
+          f"frame steps; {kernel}'s CUDA launches {queued})")
     print(f"  forward tracking: {n_frames - 1} frames in {fwd_s:.3f} s = "
           f"{fps:.2f} frames/s")
     track = dict(db=db_path, verts=verts, tris=tris, poses=poses, fwd=fwd,
-                 run=run, k5_launches=k5_launches,
-                 k5_cuda_launches=k5_queued, sweep=sweeps[-1])
+                 run=run, cast_kernel=kernel, cast_launches=cast_n,
+                 cast_cuda_launches=queued, sweep=sweeps[-1])
     return launches, fps, path_err, track
 
 
@@ -1286,7 +1298,6 @@ def refine_phase(device, workdir, **size):
     from polychase_tpu_torch.engine import refiner as R
     from polychase_tpu_torch.engine.levmarq import CAUCHY, BundleOptions
     from polychase_tpu_torch.engine.refiner import refine_trajectory
-    from polychase_tpu_torch.kernels import raycast_sweep
 
     refine, mesh = refine_inputs(device, workdir, **size)
     db_path, poses, noisy = refine["db"], refine["poses"], refine["noisy"]
@@ -1306,17 +1317,18 @@ def refine_phase(device, workdir, **size):
     if R._refresh_routing(mesh):
         raise AssertionError("config 4's mesh took the host BVH route")
     sweeps = []
-    real_sweep, real_refresh = raycast_sweep.raycast_hits, R.refresh_prims
+    real_cast, real_refresh = R.raycast_grouped, R.refresh_prims
 
-    def record_sweep(*args, **kw):
-        sweeps.append(args[:6])
-        return real_sweep(*args, **kw)
+    def record_cast(m, origins, dirs, check_mask=True):
+        sweeps.append((origins.contiguous(), dirs.contiguous(), m.vertices,
+                       m.triangles, m.masked_triangles, check_mask))
+        return real_cast(m, origins, dirs, check_mask)
 
-    raycast_sweep.raycast_hits = record_sweep
+    R.raycast_grouped = record_cast
     try:
         warm = run(noisy())
     finally:
-        raycast_sweep.raycast_hits = real_sweep
+        R.raycast_grouped = real_cast
     traj = noisy()
     band = band_solve_check(device, db_path, traj, mesh)
 
@@ -1334,13 +1346,14 @@ def refine_phase(device, workdir, **size):
         refreshes.append(1)
         return real_refresh(*args, **kw)
 
-    raycast_sweep.launches = 0
+    casts0 = cast_launches()
     R.refresh_prims = count_refresh
     try:
         wall = run(traj, lambda u: updates.append(u) or True)
     finally:
         R.refresh_prims = real_refresh
-    k5_launches = raycast_sweep.launches
+    kernel, cast_n, cast_fail = route_casts(casts0, mesh.num_triangles,
+                                            len(refreshes))
     split = profile_split(lambda: run(noisy()), device)
 
     stats = updates[-1].stats
@@ -1348,11 +1361,12 @@ def refine_phase(device, workdir, **size):
     print(f"  refine: {iters} iterations in {wall:.4f} s (warm-up run "
           f"{warm:.4f} s)")
     fails = refine_gates(state, poses, ends, before, stats)
-    print(f"  K5 launches in the timed run: {k5_launches} (= "
+    print(f"  {kernel} launches in the timed run: {cast_n} (= "
           f"{len(refreshes)} prim refreshes on the device route)")
-    if k5_launches != len(refreshes) or not refreshes:
-        fails.append(f"K5 launched {k5_launches} times for "
-                     f"{len(refreshes)} prim refreshes")
+    if cast_fail or not refreshes:
+        fails.append(f"{kernel} launched {cast_n} times for "
+                     f"{len(refreshes)} prim refreshes"
+                     + (f"; {cast_fail}" if cast_fail else ""))
     (nb, bs), n0, band_ms, dense_ms, rel = band
     print(f"  one normal system (P = {n0}, nb = {nb}, bs = {bs}): banded "
           f"{band_ms:.4f} ms, dense {dense_ms:.4f} ms, steps differ by "
@@ -1366,13 +1380,58 @@ def refine_phase(device, workdir, **size):
           + f", other {busy_ms - sum(labels.values()):.3f}")
     if fails:
         raise AssertionError("refine:\n" + "\n".join(fails))
-    refine.update(k5_launches=k5_launches, sweep=sweeps[0])
+    refine.update(cast_kernel=kernel, cast_launches=cast_n, sweep=sweeps[0])
     return wall, iters, refine
 
 
 # ---------------------------------------------------------------------------
 # K5 phase
 # ---------------------------------------------------------------------------
+
+
+def cast_launches():
+    """The grouped casts' kernel launches so far, ``(K5, K6)``, as their
+    wrappers count them."""
+    from polychase_tpu_torch.kernels import grid_cast, raycast_sweep
+
+    return raycast_sweep.launches, grid_cast.launches
+
+
+def cast_kernel(n_triangles):
+    """The kernel that casts a grouped cast over ``n_triangles`` on the
+    card: "K6" where ``raycast.grid_route`` sends the mesh to its grid,
+    else "K5"."""
+    from polychase_tpu_torch.engine.raycast import grid_route
+
+    return "K6" if grid_route(n_triangles) else "K5"
+
+
+def route_casts(before, n_triangles, steps):
+    """The cast launches since ``before`` (``cast_launches()``) of a path
+    that should have cast ``steps`` times on ``n_triangles``: ``(kernel,
+    its launches, failure or None)``, the failure unless the route's
+    kernel launched once a step and the other never."""
+    k5, k6 = (a - b for a, b in zip(cast_launches(), before))
+    kernel = cast_kernel(n_triangles)
+    want = (0, steps) if kernel == "K6" else (steps, 0)
+    fail = None if (k5, k6) == want else (
+        f"K5 and K6 launched {k5} and {k6} times for {steps} casts, want "
+        f"{kernel} once a cast")
+    return kernel, k6 if kernel == "K6" else k5, fail
+
+
+@contextlib.contextmanager
+def sweep_route():
+    """``raycast_grouped`` through its sweep (K5 on a card) whatever the
+    mesh's size, for the block."""
+    from polychase_tpu_torch.engine import raycast as R
+
+    saved = R.GRID_TRIANGLE_THRESHOLD
+    R.GRID_TRIANGLE_THRESHOLD = R.GRID_TRIANGLE_LIMIT
+    try:
+        yield
+    finally:
+        R.GRID_TRIANGLE_THRESHOLD = saved
 
 
 @contextlib.contextmanager
@@ -1514,18 +1573,21 @@ def k5_tracking_turns(device, track, smi):
     """Forward tracking over the tracking clip with K5 and with the plain
     route on the card, in turns (K5, plain, plain, K5), then one K5 run
     under ``torch.profiler``: its busy share and the device time of its
-    largest kernels by name."""
+    largest kernels by name; the sweep route forced whatever the mesh's
+    size (``sweep_route``)."""
     run, db = track["run"], track["db"]
     n = len(track["poses"]) - 1
     turns = []
-    for how in ("K5", "plain", "plain", "K5"):
-        with plain_route() if how == "plain" else contextlib.nullcontext():
-            turns.append((how, n / run(db, 0, n)[1]))
-    print(f"  forward tracking ({n} frames; K5, plain route, in turns): "
-          + ", ".join(f"{how} {fps:.4f}" for how, fps in turns)
-          + f" frames/s on {smi}")
-    wall, _, busy_ms, busy, kernels = profile_split(
-        lambda: run(db, 0, n), device, ())
+    with sweep_route():
+        for how in ("K5", "plain", "plain", "K5"):
+            with (plain_route() if how == "plain"
+                  else contextlib.nullcontext()):
+                turns.append((how, n / run(db, 0, n)[1]))
+        print(f"  forward tracking ({n} frames; K5, plain route, in turns): "
+              + ", ".join(f"{how} {fps:.4f}" for how, fps in turns)
+              + f" frames/s on {smi}")
+        wall, _, busy_ms, busy, kernels = profile_split(
+            lambda: run(db, 0, n), device, ())
     print(f"  profiled K5 run: {wall:.4f} s, device time {busy_ms:.3f} ms, "
           f"busy share {busy:.4f}; device ms by kernel: "
           + ", ".join(f"{name[:60]} {ms:.3f}" for name, ms in kernels[:8]))
@@ -1603,11 +1665,10 @@ def k5_phase(device, track, refine, smi):
     # No ray of the turned-around frame hits.
     if bool(raycast_sweep.raycast_hits(*scenes[6][1]).valid.any()):
         fails.append("a turned-around ray hit the mesh")
-    # One tracking frame's whole cast, as the tracker calls it: one kernel.
+    # One tracking frame's whole cast on the sweep route: one kernel.
     mesh = Mesh.create(track["verts"], track["tris"], device=device)
-    queued, ran, _ = device_work(lambda: R.raycast_grouped(mesh,
-                                                           *frame[:2]))
-    print(f"  a tracking frame's raycast_grouped: {len(queued)} launch(es), "
+    queued, ran, _ = device_work(lambda: R.sweep_grouped(mesh, *frame[:2]))
+    print(f"  a tracking frame's sweep route: {len(queued)} launch(es), "
           f"copies and fills queued ({', '.join(queued)}); the device ran "
           f"{', '.join(f'{n[:60]} {ms:.4f} ms' for n, ms in ran) or 'none the profiler saw'}")
     if (len(queued) != 1 or not queued[0].startswith("cudaLaunchKernelEx")
@@ -2126,9 +2187,12 @@ def surface_phase(device, frames, analyze_db, track, refine, workdir, smi):
             raise errors[0]
         return results, seconds
 
-    pnp_lm.launches = raycast_sweep.launches = 0
+    pnp_lm.launches = 0
+    casts0 = cast_launches()
     results, seconds = track_thread()
-    k1_track, k5_track = pnp_lm.launches, raycast_sweep.launches
+    k1_track = pnp_lm.launches
+    kernel, cast_track, cast_fail = route_casts(casts0, len(track["tris"]),
+                                                last)
     direct = {r.frame: (r.pose.q.numpy(), r.pose.t.numpy())
               for r in track["fwd"]}
     rot = max(quat_err(r.pose.q, poses[r.frame][0]) for r in results)
@@ -2139,11 +2203,12 @@ def surface_phase(device, frames, analyze_db, track, refine, workdir, smi):
                 for r in results)
     print(f"  TrackerThread: {len(results)} frames in {seconds:.3f} s, max "
           f"rot err {rot:.3g} rad, max t err {terr:.3g}; largest difference "
-          f"from the direct run's poses {dpose:.3g}; K1 / K5 launches "
-          f"{k1_track} / {k5_track}")
-    if (k1_track, k5_track) != (last, last):
-        fails.append(f"the TrackerThread launched K1 {k1_track} and K5 "
-                     f"{k5_track} times for {last} frames")
+          f"from the direct run's poses {dpose:.3g}; K1 / {kernel} "
+          f"launches {k1_track} / {cast_track}")
+    if k1_track != last or cast_fail:
+        fails.append(f"the TrackerThread launched K1 {k1_track} and "
+                     f"{kernel} {cast_track} times for {last} frames"
+                     + (f"; {cast_fail}" if cast_fail else ""))
     if [r.frame for r in results] != list(range(1, last + 1)):
         fails.append("the TrackerThread's frames are not 1..last")
     if rot > ROT_ERR_MAX or terr > T_ERR_MAX:
@@ -2306,7 +2371,7 @@ def surface_phase(device, frames, analyze_db, track, refine, workdir, smi):
               + f" on {smi}")
     return k1_track + k1_pin, lk_launches, dict(
         db=path, poses={r.frame: (r.pose.q, r.pose.t) for r in results},
-        k5_launches=k5_track)
+        cast_launches=cast_track)
 
 
 # ---------------------------------------------------------------------------
@@ -2504,9 +2569,12 @@ def segments_phase(device, track, refine, smi):
         fails.append(f"track_segments launched {len(inputs)} solves of "
                      f"S = {S}, want {steps} of S = {len(TRACK_SEEDS)}")
 
-    pnp_lm.launches = raycast_sweep.launches = 0
+    pnp_lm.launches = 0
+    casts0 = cast_launches()
     trajs, counts, _ = parallel_track()
-    launches, k5_launches = pnp_lm.launches, raycast_sweep.launches
+    launches = pnp_lm.launches
+    kernel, cast_n, cast_fail = route_casts(casts0, len(track["tris"]),
+                                            steps)
     seq, _ = sequential_track()
     rot = terr = dq = dt = 0.0
     for a, b in zip(trajs, seq):
@@ -2520,11 +2588,12 @@ def segments_phase(device, track, refine, smi):
     print(f"  track_segments: {len(TRACK_SEEDS)} segments x {steps} steps, "
           f"{int(counts.min())}-{int(counts.max())} correspondences a solve; "
           f"max rot err {rot:.3g} rad, max t err {terr:.3g}; against the "
-          f"sequential tracks |dq| {dq:.3g}, |dt| {dt:.3g}; K1 / K5 "
-          f"launches {launches} / {k5_launches} (= {steps} steps)")
-    if (launches, k5_launches) != (steps, steps):
-        fails.append(f"K1 and K5 launched {launches} and {k5_launches} "
-                     f"times for {steps} steps")
+          f"sequential tracks |dq| {dq:.3g}, |dt| {dt:.3g}; K1 / {kernel} "
+          f"launches {launches} / {cast_n} (= {steps} steps)")
+    if launches != steps or cast_fail:
+        fails.append(f"K1 and {kernel} launched {launches} and {cast_n} "
+                     f"times for {steps} steps"
+                     + (f"; {cast_fail}" if cast_fail else ""))
     if counts.shape != (len(TRACK_SEEDS), steps) or (counts < 3).any():
         fails.append(f"track_segments counts {counts.shape}, min "
                      f"{int(counts.min())}")
@@ -2710,7 +2779,7 @@ def segments_phase(device, track, refine, smi):
               f"frames; sequential, segment-parallel, in turns): "
               + ", ".join(f"{how} {value:.4f}" for how, value in runs)
               + f" on {smi}")
-    return launches, seg_err, k5_launches
+    return launches, seg_err, cast_n
 
 
 # ---------------------------------------------------------------------------
@@ -3433,7 +3502,7 @@ def routes_phase(device, frames, analyze_db, smi):
 # ---------------------------------------------------------------------------
 
 ADDON_SOURCES = ("pnp_lm.cu", "lk_prep.cu", "lk_iter.cu", "gftt_suppress.cu",
-                 "raycast_sweep.cu")
+                 "raycast_sweep.cu", "grid_cast.cu")
 # Between the OpenCV and the OpenGL camera frame (its own inverse).
 GL_FLIP = np.diag([1.0, -1.0, -1.0, 1.0])
 PIN_DRAG_TO = (955.0, 542.0)  # crossover.pin_drag's target of pin 2 (k = 0)
@@ -3576,7 +3645,7 @@ def addon_phase(device, frames, track, surface, workdir, smi,
     docstring, item 15), its engine calls on ``addon_device``, the copy's
     ``core.DEVICE`` (None: the card, as a user's Blender runs it).
     ``device`` runs the checkout's reference calls.  Returns the K1, K2,
-    K3, K4 and K5 launches of its gated runs."""
+    K3, K4, K5 and K6 launches of its gated runs."""
     import importlib
     import sys
     from pathlib import Path
@@ -3631,7 +3700,8 @@ def addon_phase(device, frames, track, surface, workdir, smi,
         import polychase_tpu_torch.polychase_core as pc
         from polychase_tpu_torch import native
         from polychase_tpu_torch.kernels import (
-            build, gftt_suppress, lk_iter, lk_prep, pnp_lm, raycast_sweep,
+            build, gftt_suppress, grid_cast, lk_iter, lk_prep, pnp_lm,
+            raycast_sweep,
         )
 
         pkg = "polychase_tpu_torch.blender_addon"
@@ -3650,7 +3720,8 @@ def addon_phase(device, frames, track, surface, workdir, smi,
         cache_root = Path(cache) / "polychase_tpu_torch"
         t0 = time.perf_counter()
         libs = build.load_all(ADDON_SOURCES)
-        for mod in (pnp_lm, lk_prep, lk_iter, gftt_suppress, raycast_sweep):
+        for mod in (pnp_lm, lk_prep, lk_iter, gftt_suppress, raycast_sweep,
+                    grid_cast):
             mod.load()
         build_s = time.perf_counter() - t0
         checks = {
@@ -3665,7 +3736,7 @@ def addon_phase(device, frames, track, surface, workdir, smi,
                 and build.build_root() != Path(extract).parent / "build",
             "the host library lies in the user cache":
                 native.library_path().parent == cache_root / "torch_native",
-            "K1-K5 lie in the user cache, built from the zip's csrc/":
+            "K1-K6 lie in the user cache, built from the zip's csrc/":
                 all(lib.path.parent == cache_root / "torch_kernels"
                     for lib in libs)
                 and str(build.CSRC).startswith(extract),
@@ -3784,7 +3855,8 @@ def addon_phase(device, frames, track, surface, workdir, smi,
             return cv_view(tracker.camera.matrix_world)
 
         # The gated runs, with the launch counts of the zip's wrappers.
-        kernels = (pnp_lm, lk_prep, lk_iter, gftt_suppress, raycast_sweep)
+        kernels = (pnp_lm, lk_prep, lk_iter, gftt_suppress, raycast_sweep,
+                   grid_cast)
         for mod in kernels:
             mod.launches = 0
         analyze_s = addon_analyze(os.path.join(workdir, "addon_analyze.db"))
@@ -3863,9 +3935,11 @@ def addon_phase(device, frames, track, surface, workdir, smi,
         if dpin > PIN_ROUTE_ATOL:
             fails.append(f"the add-on's pin drag differs from the pin "
                          f"phase's by {dpin:.3g}")
+        grid = track["cast_kernel"] == "K6"
         want = (last, levels * solves, levels * solves,
-                n if analyze_k4(height, width) else 0, last)
-        print(f"  K1 / K2 / K3 / K4 / K5 launches through the add-on: "
+                n if analyze_k4(height, width) else 0, 0 if grid else last,
+                last if grid else 0)
+        print(f"  K1 / K2 / K3 / K4 / K5 / K6 launches through the add-on: "
               f"{' / '.join(map(str, launches))} (want "
               f"{' / '.join(map(str, want))})")
         if launches != want:
@@ -3958,8 +4032,8 @@ def main() -> None:
         k1_surface, lk_surface, surface = surface_phase(
             device, frames, analyze_db, track, refine, workdir, smi)
         print("segments phase (track_segments and refine_segments):")
-        k1_segments, seg_err, k5_segments = segments_phase(device, track,
-                                                           refine, smi)
+        k1_segments, seg_err, cast_segments = segments_phase(
+            device, track, refine, smi)
         print("sharded phase (analyze and refine split over devices):")
         lk_sharded = sharded_phase(device, frames, analyze_db, refine, smi)
         print("analyze-routes phase (GFTT device suppression, chained fan):")
@@ -3968,6 +4042,13 @@ def main() -> None:
         addon = addon_phase(device, frames, track, surface, workdir, smi)
 
     (k2_ms, k2_plain), (k3_ms, k3_plain) = lk_times
+
+    def routed(kernel, phase_kernel, n):
+        """A phase's cast launches, counted for ``kernel`` where its cast
+        took that kernel, else 0."""
+        return n if phase_kernel == kernel else 0
+
+    track_k, refine_k = track["cast_kernel"], refine["cast_kernel"]
     (k2_bound_ms, k2_by), (k3_bound_ms, k3_by) = lk_bounds
     k1_ms, k1_plain, _, _, (k1_bound_ms, k1_by) = times[
         "loss1_ftol1e-05_f0_pp0"]
@@ -4068,19 +4149,20 @@ def main() -> None:
         "replaces": "polychase_tpu/engine/raycast.py:153",
         # One a frame step of the tracking phase's runs; refine_launches:
         # one a prim refresh of the refine phase's timed run; cuda_launches:
-        # those the library counted for the main path's, one a call. ms,
+        # those the library counted for the main path's, one a call; each
+        # 0 where that phase's mesh takes the grid route (K6). ms,
         # plain_ms and the bound: a recorded tracking frame (8192 rays,
         # 20,224 triangles), its whole cast in one launch, the plain route
         # its sweep and hits in torch; refresh_*: config 4's recorded
         # refresh; flat_*: its rays as 32,000 groups of one.
         # rays_per_thread, cluster and registers: the frame's launch;
         # frame_step_kernels: the device kernels of one tracking frame's
-        # raycast_grouped.
-        "launches": track["k5_launches"],
-        "cuda_launches": track["k5_cuda_launches"],
-        "refine_launches": refine["k5_launches"],
-        "surface_launches": surface["k5_launches"],
-        "segments_launches": k5_segments,
+        # sweep route.
+        "launches": routed("K5", track_k, track["cast_launches"]),
+        "cuda_launches": routed("K5", track_k, track["cast_cuda_launches"]),
+        "refine_launches": routed("K5", refine_k, refine["cast_launches"]),
+        "surface_launches": routed("K5", track_k, surface["cast_launches"]),
+        "segments_launches": routed("K5", track_k, cast_segments),
         "addon_launches": addon[4],
         "max_abs_err": k5["max_abs_err"],
         "ms": frame_ms,
@@ -4115,9 +4197,19 @@ def main() -> None:
         # config 4's recorded refresh; large_*: the frame's rays on
         # 1,998,000 triangles; team: the frame's lanes a ray, whose
         # registers and spills these are; max_abs_err: against grid_plain;
-        # sweep_max_abs_err: t and positions against K5 and the flat cast.
+        # sweep_max_abs_err: t and positions against K5 and the flat cast;
+        # track_*, refine_*, surface_, segments_ and addon_launches: the
+        # tracking phase's, the refine phase's, ... casts where their mesh
+        # takes the grid route, else 0.
         "launches": k6["launches"],
         "cuda_launches": k6["cuda_launches"],
+        "track_launches": routed("K6", track_k, track["cast_launches"]),
+        "track_cuda_launches": routed("K6", track_k,
+                                      track["cast_cuda_launches"]),
+        "refine_launches": routed("K6", refine_k, refine["cast_launches"]),
+        "surface_launches": routed("K6", track_k, surface["cast_launches"]),
+        "segments_launches": routed("K6", track_k, cast_segments),
+        "addon_launches": addon[5],
         "max_abs_err": k6["max_abs_err"],
         "sweep_max_abs_err": k6["sweep_max_abs_err"],
         "ms": k6_frame[0],

@@ -282,7 +282,9 @@ class AcceleratedMesh:
 
     Holds an engine mesh per device (batched casts, tracking, refine), each
     rebuilt when the mask changes, and a host C++ BVH (single-ray viewport
-    picking, the Embree replacement)."""
+    picking, the Embree replacement).  An engine mesh's grid (built at its
+    first cast that takes the grid) depends on the geometry alone: a mask
+    change keeps it, ``inner_mut`` drops it with the engine meshes."""
 
     def __init__(self, vertices, triangles, masked_triangles=None):
         self._mesh = Mesh(vertices, triangles, masked_triangles)
@@ -301,7 +303,10 @@ class AcceleratedMesh:
         mask_bytes = self._mesh.masked_triangles.tobytes()
         cached = self._engine_meshes.get(device)
         if cached is None or cached[0] != mask_bytes:
-            cached = (mask_bytes, self._mesh._to_engine(device))
+            mesh = self._mesh._to_engine(device)
+            if cached is not None:
+                mesh.grid = cached[1].grid
+            cached = (mask_bytes, mesh)
             self._engine_meshes[device] = cached
         return cached[1]
 

@@ -2,7 +2,9 @@
 
 Usage, from the root of a checkout on a machine with a CUDA card:
 
-    python3 -m polychase_tpu_torch.crossover
+    python3 -m polychase_tpu_torch.crossover [refresh] [frame] [pin]
+
+(the tables named, all three without a name).
 
 1. Refine's prim refresh by three routes: the device sweep (K5 on the
    card), the uniform grid (``engine.gridcast``, K6 on the card) and the
@@ -14,16 +16,21 @@ Usage, from the root of a checkout on a machine with a CUDA card:
    BVH, grid, sweep); the grid's and the BVH's builds, once per refine,
    are printed apart, with the share of the grid's and the BVH's prims
    equal to the sweep's.
-2. One tracking frame's cast (4 groups of 2048 rays from the clip's first
-   cameras) by K5 (``raycast_grouped``) and K6 (``grid_raycast_grouped``)
-   at the same mesh sizes, CUDA events behind a device sleep, in turns
-   (K5, K6, K6, K5), with the share of equal ids.
+2. One tracking frame's grouped cast (4 groups of 2048 rays from the
+   clip's first cameras) by the sweep (``raycast.sweep_grouped``, K5) and
+   the grid (``grid_raycast_grouped``, K6) at the same mesh sizes, CUDA
+   events behind a device sleep, in turns (K5, K6, K6, K5), and each
+   call's host clock ending in a synchronise; the grid's build (host
+   clock, median of 3 after a first), and K6's time a frame with the
+   build spread over a 120-frame pass; with the share of equal ids.
 3. Pin mode's ≥ 3-pin solve: the host route (float64 numpy) against the
    device route (``solve_pnp``, K1 on the card) at 3 to 16,384 points.
 
-``refiner.BVH_TRIANGLE_THRESHOLD`` is set from the first table; no route of
-refine takes the grid yet.
-``pinmode.HOST_PIN_MAX`` is not set from the second: it is the JAX
+``refiner.BVH_TRIANGLE_THRESHOLD`` is set from the first table, and
+``raycast.GRID_TRIANGLE_THRESHOLD`` from the second: the least count from
+which K6 with its build spread over a pass beats K5, on the device and on
+the call's host clock.
+``pinmode.HOST_PIN_MAX`` is not set from the third: it is the JAX
 package's default, 4096, kept for the reference's answer, which the
 float32 device route leaves (``tests/pin_route_scan.py``).  The pin table
 gives what the float64 host route costs a drag, and so what a float64
@@ -33,6 +40,7 @@ device route would have to beat.
 from __future__ import annotations
 
 import functools
+import sys
 import time
 
 import numpy as np
@@ -43,7 +51,13 @@ PIN_COUNTS = (3, 4, 8, 64, 512, 4096, 16384)
 # 130,560, 399,000, 1,258,200 and 1,998,000 triangles.
 SPHERES = ((24, 32), (36, 72), (50, 110), (60, 120), (80, 128), (256, 256),
            (400, 500), (700, 900), (1000, 1000))
+# The frame table's: those and 2,320, 3,360, 6,864, 8,448, 32,512, 44,700,
+# 64,440 and 79,600 triangles, around the grouped cast's crossovers.
+FRAME_SPHERES = tuple(sorted(SPHERES + (
+    (30, 40), (36, 48), (40, 88), (45, 96), (128, 128), (150, 150),
+    (180, 180), (200, 200)), key=lambda s: 2 * s[1] * (s[0] - 1)))
 WIDTH, HEIGHT, FOCAL = 1920, 1080, 1800.0
+PASS_FRAMES = 120  # frames of a tracking pass over which a build is spread
 
 
 def _sync(device):
@@ -164,6 +178,7 @@ def refresh_route_table(device, spheres=SPHERES, frames=250, keypoints=128,
     from .engine import refiner as R
     from .engine.geometry import Mesh
     from .engine.gridcast import build_grid_accel, grid_raycast_grouped
+    from .engine.raycast import sweep_grouped
     from .synthetic import uv_sphere
 
     if not native.available():
@@ -176,15 +191,16 @@ def refresh_route_table(device, spheres=SPHERES, frames=250, keypoints=128,
         mesh = Mesh.create(verts, tris, device=device)
         tri = mesh.triangle_corners()
         args = (data, mesh, eye, eye, tri, 1.0, 2)
-        sweep = R._make_prim_refresher(*args, routing=False)
         t0 = time.perf_counter()
         accel = build_grid_accel(verts, tris, device=device)
         _sync(device)
         grid_build = (time.perf_counter() - t0) * 1e3
-        grid = functools.partial(
+        route = functools.partial(
             R.refresh_prims_and_cost, data=data, mesh=mesh, model=eye,
-            model_inv=eye, tri_corners=tri, loss_scale=1.0, loss_type=2,
-            cast=lambda m, o, d: grid_raycast_grouped(m, accel, o, d))
+            model_inv=eye, tri_corners=tri, loss_scale=1.0, loss_type=2)
+        sweep = functools.partial(route, cast=sweep_grouped)
+        grid = functools.partial(
+            route, cast=lambda m, o, d: grid_raycast_grouped(m, accel, o, d))
         t0 = time.perf_counter()
         bvh = R._make_prim_refresher(*args, routing=True)
         bvh_build = (time.perf_counter() - t0) * 1e3
@@ -201,17 +217,20 @@ def refresh_route_table(device, spheres=SPHERES, frames=250, keypoints=128,
     return rows
 
 
-def frame_route_table(device, spheres=SPHERES, groups=4, keypoints=2048,
+def frame_route_table(device, spheres=FRAME_SPHERES, groups=4, keypoints=2048,
                       reps=20):
-    """[(triangles, K5 ms turns, K6 ms turns, id agreement)] for one
-    tracking frame's cast (``groups`` cameras of the clip, ``keypoints``
-    rays each) by ``raycast_grouped`` (K5) and ``grid_raycast_grouped``
-    (K6), CUDA events behind a device sleep (``timing.event_ms``), in
-    turns (K5, K6, K6, K5)."""
+    """[(triangles, K5 ms turns, K6 ms turns, K5 host ms turns, K6 host ms
+    turns, grid build ms, id agreement)] for one tracking frame's grouped
+    cast (``groups`` cameras of the clip, ``keypoints`` rays each) by
+    ``raycast.sweep_grouped`` (K5) and ``grid_raycast_grouped`` (K6):
+    device time by CUDA events behind a device sleep
+    (``timing.event_ms``), and a call's host clock ending in a synchronise
+    (median of ``reps``), each in turns (K5, K6, K6, K5); the build is the
+    median of 3 host-clock builds after a first."""
     from .engine import refiner as R
     from .engine.geometry import Mesh
     from .engine.gridcast import build_grid_accel, grid_raycast_grouped
-    from .engine.raycast import raycast_grouped
+    from .engine.raycast import sweep_grouped
     from .synthetic import uv_sphere
     from .timing import event_ms
 
@@ -221,16 +240,27 @@ def frame_route_table(device, spheres=SPHERES, groups=4, keypoints=2048,
     for n_lat, n_lon in spheres:
         verts, tris = uv_sphere(n_lat, n_lon)
         mesh = Mesh.create(verts, tris, device=device)
-        accel = build_grid_accel(verts, tris, device=device)
+        build = functools.partial(build_grid_accel, verts, tris,
+                                  device=device)
+        accel = build()
+        builds = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            build()
+            _sync(device)
+            builds.append((time.perf_counter() - t0) * 1e3)
         casts = dict(
-            k5=lambda: raycast_grouped(mesh, origins, dirs),
+            k5=lambda: sweep_grouped(mesh, origins, dirs),
             k6=lambda: grid_raycast_grouped(mesh, accel, origins, dirs))
         ms = {k: [] for k in casts}
+        host = {k: [] for k in casts}
         for k in ("k5", "k6", "k6", "k5"):
             ms[k].append(event_ms(casts[k], reps))
+            host[k].append(_median_ms(casts[k], device, reps))
         a, b = casts["k5"](), casts["k6"]()
         agree = float((a.prim_id == b.prim_id).float().mean())
-        rows.append((mesh.num_triangles, ms["k5"], ms["k6"], agree))
+        rows.append((mesh.num_triangles, ms["k5"], ms["k6"], host["k5"],
+                     host["k6"], float(np.median(builds)), agree))
     return rows
 
 
@@ -252,24 +282,42 @@ def main() -> None:
     pnp_lm.load()
     raycast_sweep.load()
     grid_cast.load()
-    print("prim refresh, config 4's 32,000 rays (ms per refresh; sweep, "
-          "grid, BVH, BVH, grid, sweep):", flush=True)
-    for (tris, s_ms, g_ms, b_ms, g_build, b_build, g_agree,
-         b_agree) in refresh_route_table(device):
-        print(f"  {tris:7d} triangles: device sweep {s_ms[0]:.3f}, grid "
-              f"{g_ms[0]:.3f}, host BVH {b_ms[0]:.3f}, {b_ms[1]:.3f}, grid "
-              f"{g_ms[1]:.3f}, device sweep {s_ms[1]:.3f} (builds: grid "
-              f"{g_build:.3f}, BVH {b_build:.3f}); prims equal the sweep's: "
-              f"grid {g_agree:.5f}, BVH {b_agree:.5f}", flush=True)
-    print("a tracking frame's cast, 4 x 2048 rays (device ms; K5, K6, K6, "
-          "K5):", flush=True)
-    for tris, k5_ms, k6_ms, agree in frame_route_table(device):
-        print(f"  {tris:7d} triangles: K5 {k5_ms[0]:.4f}, K6 {k6_ms[0]:.4f}, "
-              f"{k6_ms[1]:.4f}, K5 {k5_ms[1]:.4f}; ids equal {agree:.5f}",
-              flush=True)
-    print("pin drag, >= 3 pins (ms per drag):")
-    for n, h_ms, d_ms in pin_route_table(device):
-        print(f"  {n:6d} points: host {h_ms:.4f}, device {d_ms:.4f}")
+    tables = set(sys.argv[1:]) or {"refresh", "frame", "pin"}
+    if "refresh" in tables:
+        print("prim refresh, config 4's 32,000 rays (ms per refresh; sweep, "
+              "grid, BVH, BVH, grid, sweep):", flush=True)
+        for (tris, s_ms, g_ms, b_ms, g_build, b_build, g_agree,
+             b_agree) in refresh_route_table(device):
+            print(f"  {tris:7d} triangles: device sweep {s_ms[0]:.3f}, grid "
+                  f"{g_ms[0]:.3f}, host BVH {b_ms[0]:.3f}, {b_ms[1]:.3f}, "
+                  f"grid {g_ms[1]:.3f}, device sweep {s_ms[1]:.3f} (builds: "
+                  f"grid {g_build:.3f}, BVH {b_build:.3f}); prims equal the "
+                  f"sweep's: grid {g_agree:.5f}, BVH {b_agree:.5f}",
+                  flush=True)
+    if "frame" in tables:
+        print("a tracking frame's grouped cast, 4 x 2048 rays (device ms, "
+              "K5, K6, K6, K5; host ms a call, the same turns; the grid's "
+              f"build, host ms; K6 with the build over {PASS_FRAMES} "
+              "frames):", flush=True)
+        for (tris, k5_ms, k6_ms, k5_host, k6_host, build_ms,
+             agree) in frame_route_table(device):
+            spread = build_ms / PASS_FRAMES
+            dev = (min(k6_ms) + spread, min(k5_ms))
+            host = (min(k6_host) + spread, min(k5_host))
+            print(f"  {tris:7d} triangles: K5 {k5_ms[0]:.4f}, K6 "
+                  f"{k6_ms[0]:.4f}, {k6_ms[1]:.4f}, K5 {k5_ms[1]:.4f}; host "
+                  f"K5 {k5_host[0]:.4f}, K6 {k6_host[0]:.4f}, "
+                  f"{k6_host[1]:.4f}, K5 {k5_host[1]:.4f}; build "
+                  f"{build_ms:.3f}; K6 + build / {PASS_FRAMES} against K5: "
+                  + "; ".join(f"{clock} {a:.4f} / {b:.4f} "
+                              f"({'K6' if a < b else 'K5'})"
+                              for clock, (a, b) in (("device", dev),
+                                                    ("host", host)))
+                  + f"; ids equal {agree:.5f}", flush=True)
+    if "pin" in tables:
+        print("pin drag, >= 3 pins (ms per drag):")
+        for n, h_ms, d_ms in pin_route_table(device):
+            print(f"  {n:6d} points: host {h_ms:.4f}, device {d_ms:.4f}")
 
 
 if __name__ == "__main__":

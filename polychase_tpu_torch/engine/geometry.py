@@ -8,7 +8,8 @@ turns the words back into the reference's ``uint32`` layout.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 import torch
@@ -54,7 +55,10 @@ class Mesh:
 
     ``vertices`` (V, 3) float32; ``triangles`` (T, 3) int64;
     ``masked_triangles`` (ceil(T/32) padded to 4,) int64 holding u32 words;
-    ``bbox_min``/``bbox_max`` (3,) float32.
+    ``bbox_min``/``bbox_max`` (3,) float32.  ``grid`` is the mesh's
+    ``gridcast.GridAccel`` on its device, built at the first cast that
+    takes it (``gridcast.mesh_grid``); it depends on the vertices and
+    triangles only, so a mesh that differs in its mask may share it.
     """
 
     vertices: torch.Tensor
@@ -62,6 +66,8 @@ class Mesh:
     masked_triangles: torch.Tensor
     bbox_min: torch.Tensor
     bbox_max: torch.Tensor
+    grid: Optional["GridAccel"] = field(  # noqa: F821
+        default=None, repr=False, compare=False)
 
     @staticmethod
     def create(vertices, triangles, masked_triangles=None, *,

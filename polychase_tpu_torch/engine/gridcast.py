@@ -8,7 +8,9 @@ Embree's BVH (cpp/ray_casting.cc:21-121) for a device:
   CSR-style (``cell_start``, ``items``, x-major cells
   ``flat = (ix·ry + iy)·rz + iz``), with the reference's resolution rule,
   so that ``cell_start``, ``items``, ``lo``, ``h`` and ``res`` equal the
-  JAX build's to the bit.
+  JAX build's to the bit.  :func:`mesh_grid` keeps a mesh's grid with it,
+  so that ``raycast.raycast_grouped``, which casts through the grid from
+  ``raycast.GRID_TRIANGLE_THRESHOLD`` triangles, builds it once a mesh.
 - **Traverse**: each ray walks its cells with the Amanatides–Woo 3D-DDA.
   A ray's action is either a block of ``block`` candidates of its current
   cell (Möller–Trumbore with its own origin, eps 1e-10, ``t > 0``) or one
@@ -42,13 +44,20 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..backend import as_device
 from .geometry import Mesh
 from .pose import cross
-from .raycast import INVALID_ID, RayHits, _EPS, _ray_hits, _unmasked
+from .raycast import (
+    GRID_TRIANGLE_LIMIT, INVALID_ID, RayHits, _EPS, _ray_hits, _unmasked,
+)
 
 _BIG = float("inf")
+
+# Grids built in this process (one a :func:`build_grid_accel` call), as the
+# kernels count their launches.
+builds = 0
 
 
 @dataclass
@@ -106,8 +115,27 @@ def build_grid_accel(vertices, triangles, max_cells: int = 1 << 21,
     the conservative bounding-box binning keeps the mean items a triangle
     at most ``max_mean_items``: a skewed mesh (one huge ground plane)
     coarsens the grid instead of exploding its lists.  Fewer than 2**23
-    triangles, as the reference."""
-    device = as_device(device)
+    triangles, as the reference.  Each build is a ``torch.profiler`` span,
+    ``mesh.grid_build``, and is counted in :data:`builds`."""
+    global builds
+    with record_function("mesh.grid_build"):
+        accel = _build(vertices, triangles, max_cells, max_mean_items,
+                       as_device(device))
+    builds += 1
+    return accel
+
+
+def mesh_grid(mesh: Mesh) -> GridAccel:
+    """The grid of ``mesh`` on its device: built at the first call and kept
+    with the mesh (``Mesh.grid``), so that every later cast reuses it."""
+    if mesh.grid is None:
+        mesh.grid = build_grid_accel(mesh.vertices, mesh.triangles,
+                                     device=mesh.vertices.device)
+    return mesh.grid
+
+
+def _build(vertices, triangles, max_cells, max_mean_items, device):
+    """:func:`build_grid_accel`'s build."""
     v = _host(vertices, np.float64).reshape(-1, 3)
     tri = _host(triangles, np.int64).reshape(-1, 3)
     T = tri.shape[0]
@@ -127,14 +155,21 @@ def build_grid_accel(vertices, triangles, max_cells: int = 1 << 21,
     if T == 0 or v.shape[0] == 0:
         return accel(np.zeros(2), np.zeros(1), np.zeros((1, 12), np.float32),
                      np.zeros(3), np.ones(3), np.ones(3))
-    if T >= (1 << 23):
+    if T >= GRID_TRIANGLE_LIMIT:
         raise ValueError("grid accel supports < 2^23 triangles")
 
-    p = v[tri]  # (T, 3, 3)
-    tlo = p.min(axis=1)
-    thi = p.max(axis=1)
-    lo = tlo.min(axis=0)
-    hi = thi.max(axis=0)
+    # Each triangle's bounds, axis-major (3, T) so that every pass below
+    # runs over contiguous memory; min and max are exact, so the bits are
+    # those of the bounds taken over (T, 3, 3) corners.
+    vt = np.ascontiguousarray(v.T)
+    corner = [np.ascontiguousarray(tri[:, k]) for k in range(3)]
+    tlo, thi = np.empty((3, T)), np.empty((3, T))
+    for a in range(3):
+        x0, x1, x2 = (vt[a].take(corner[k]) for k in range(3))
+        np.minimum(np.minimum(x0, x1, out=tlo[a]), x2, out=tlo[a])
+        np.maximum(np.maximum(x0, x1, out=thi[a]), x2, out=thi[a])
+    lo = tlo.min(axis=1)
+    hi = thi.max(axis=1)
     pad = 1e-6 * max(float((hi - lo).max()), 1.0)
     lo = lo - pad
     hi = hi + pad
@@ -148,42 +183,59 @@ def build_grid_accel(vertices, triangles, max_cells: int = 1 << 21,
     while res.prod() > max_cells:
         res = np.maximum(1, res // 2)
 
+    tlo -= lo[:, None]
+    thi -= lo[:, None]
+
+    def cells(x, h):
+        # Cell indices lie in [0, res] before the clip (x in [pad,
+        # extent - pad]), so int32 holds them.
+        c = (x / h[:, None]).astype(np.int32)
+        return np.clip(c, 0, (res - 1).astype(np.int32)[:, None], out=c)
+
     while True:
         h = extent / res
-        c0 = np.clip(((tlo - lo) / h).astype(np.int64), 0, res - 1)
-        c1 = np.clip(((thi - lo) / h).astype(np.int64), 0, res - 1)
-        span = c1 - c0 + 1  # (T, 3)
-        counts = span.prod(axis=1)
-        n_items = int(counts.sum())
+        c0, c1 = cells(tlo, h), cells(thi, h)
+        span = c1 - c0 + 1  # (3, T)
+        counts = span[0] * span[1] * span[2]
+        n_items = int(counts.sum(dtype=np.int64))
         if n_items <= max_mean_items * T or (res == 1).all():
             break
         res = np.maximum(1, res // 2)
 
-    # The (cell, triangle) pairs without a Python loop: a global item index
-    # decomposed into (triangle, local xyz offset inside its span).
-    tri_of = np.repeat(np.arange(T, dtype=np.int64), counts)
-    first = np.concatenate(([0], np.cumsum(counts)[:-1]))
-    local = np.arange(n_items, dtype=np.int64) - np.repeat(first, counts)
-    span_t = span[tri_of]
-    nyz = span_t[:, 1] * span_t[:, 2]
-    lx = local // nyz
-    rem = local - lx * nyz
-    ly = rem // span_t[:, 2]
-    lz = rem - ly * span_t[:, 2]
-    flat = ((c0[tri_of, 0] + lx) * res[1] + c0[tri_of, 1] + ly) * res[2] \
-        + c0[tri_of, 2] + lz
+    # The (cell, triangle) pairs without a Python loop: each triangle's
+    # first cell, and for the items of triangles over several cells the
+    # item's offset inside the span, from its index within the triangle.
+    r1, r2 = np.int32(res[1]), np.int32(res[2])
+    flat = np.repeat((c0[0] * r1 + c0[1]) * r2 + c0[2], counts)
+    tri_of = np.repeat(np.arange(T, dtype=np.int32), counts)
+    many = np.flatnonzero(np.repeat(counts > 1, counts))
+    if many.size:
+        t_m = tri_of[many]
+        local = (many - (np.cumsum(counts, dtype=np.int64) - counts)[t_m]
+                 ).astype(np.int32)
+        sz = span[2][t_m]
+        nyz = span[1][t_m] * sz
+        lx = local // nyz
+        local -= lx * nyz
+        ly = local // sz
+        flat[many] += (lx * r1 + ly) * r2 + local - ly * sz
 
-    order = np.argsort(flat, kind="stable")
-    items = tri_of[order]
+    # Items by cell, each cell's in ascending id: a sort of unique keys
+    # (cell, triangle), the order of a stable sort by cell of the pairs
+    # made triangle by triangle.
+    key = (flat.astype(np.int64) << 32) | tri_of
+    key.sort()
+    items = (key & 0xFFFFFFFF).astype(np.int32)
     cell_start = np.zeros(int(res.prod()) + 1, np.int64)
-    np.add.at(cell_start, flat[order] + 1, 1)
-    cell_start = np.cumsum(cell_start)
+    np.cumsum(np.bincount(flat, minlength=int(res.prod())),
+              out=cell_start[1:])
 
-    pf = p.astype(np.float32)
+    vf = v.astype(np.float32)
     rows = np.zeros((T, 12), np.float32)
-    rows[:, 0:3] = pf[:, 0]
-    rows[:, 3:6] = pf[:, 1] - pf[:, 0]
-    rows[:, 6:9] = pf[:, 2] - pf[:, 0]
+    p1 = vf.take(corner[0], axis=0)
+    rows[:, 0:3] = p1
+    np.subtract(vf.take(corner[1], axis=0), p1, out=rows[:, 3:6])
+    np.subtract(vf.take(corner[2], axis=0), p1, out=rows[:, 6:9])
     return accel(cell_start, items, rows, lo, h, res)
 
 

@@ -6,14 +6,15 @@ origin per group of rays, the hot shape), the general ``raycast`` (N rays
 with their own origins), the screen-point → ray helpers, and
 ``intersect_ray_plane_jac`` / ``intersect_ray_triangle``.  On the TPU these
 are XLA, not Pallas.  Here all are plain torch but ``raycast_grouped``,
-which on a card is one launch of K5, a kernel of the port
-(``kernels/raycast_sweep.py``); its plain version is :func:`cast_plain`
-(:func:`sweep_plain`, then :func:`hits_plain`).  The flat cast's grid
-route is ``engine/gridcast.py`` (``grid_raycast``, the same N rays with
-their own origins through a uniform grid, exact up to the order of ties;
-on a card one launch of K6, ``kernels/grid_cast.py``), which no caller
-takes yet: the surface's pick and refine's refresh keep this module's
-casts and the host BVH.
+which takes one of two routes by the mesh's triangle count
+(:func:`grid_route`): below ``GRID_TRIANGLE_THRESHOLD`` the sweep, on a
+card one launch of K5, a kernel of the port (``kernels/raycast_sweep.py``),
+whose plain version is :func:`cast_plain` (:func:`sweep_plain`, then
+:func:`hits_plain`); from it the uniform grid of ``engine/gridcast.py``
+(``grid_raycast_grouped``, exact up to the order of ties; on a card one
+launch of K6, ``kernels/grid_cast.py``, and ``grid_plain`` on the CPU),
+with the grid built once a mesh.  The flat :func:`raycast` and the
+surface's single-ray pick keep the sweep and the host BVH.
 
 Mask semantics match the reference: the closest hit is found over all
 triangles and then dropped if that triangle is masked (masked triangles
@@ -33,6 +34,23 @@ from .pose import cross
 
 INVALID_ID = 0xFFFFFFFF
 _EPS = 1e-10
+
+# Triangle count from which ``raycast_grouped`` casts through the mesh's
+# uniform grid (K6 on a card) instead of the sweep (K5).  A tracking
+# frame's 4 × 2048 rays on an NVIDIA H100 80GB HBM3 at 700.00 W, three
+# calls of ``crossover.py`` (PERF.md, section 6): K6 took 0.017-0.034 ms
+# from 1,472 to 130,560 triangles against K5's 0.019-0.97, but the grid's
+# host build, spread over one 120-frame pass, costs about as much a frame
+# as K5's sweep (0.4-1.6 µs a triangle, moving up to 2× between calls:
+# 60.8-118.4 ms at 130,560), and K6's call holds the host 0.05-0.25 ms
+# longer.  With both counted, K6 won on the device and on the call's host
+# clock in every call from 399,000 triangles; at 130,560 it won in two
+# calls and lost by 5% in the third, whose slower builds put the crossover
+# near 150,000 on both clocks.  The same count routes the CPU's casts.
+GRID_TRIANGLE_THRESHOLD = 160_000
+# The grid build's limit (``gridcast.build_grid_accel`` refuses more, as the
+# reference): from it the sweep casts whatever the threshold.
+GRID_TRIANGLE_LIMIT = 1 << 23
 
 
 @dataclass
@@ -274,6 +292,13 @@ def cast_plain(origins: torch.Tensor, dirs: torch.Tensor,
                       check_mask)
 
 
+def grid_route(num_triangles: int) -> bool:
+    """True where :func:`raycast_grouped` casts a mesh of ``num_triangles``
+    triangles through its grid: from ``GRID_TRIANGLE_THRESHOLD`` and below
+    ``GRID_TRIANGLE_LIMIT``, whatever the device."""
+    return GRID_TRIANGLE_THRESHOLD <= num_triangles < GRID_TRIANGLE_LIMIT
+
+
 def raycast_grouped(mesh: Mesh, origins: torch.Tensor, dirs: torch.Tensor,
                     check_mask: bool = True, chunk: int = 0) -> RayHits:
     """Closest-hit cast of G groups of K rays, one shared origin per group.
@@ -293,7 +318,26 @@ def raycast_grouped(mesh: Mesh, origins: torch.Tensor, dirs: torch.Tensor,
     triangle id.  CPU tensors take :func:`cast_plain`; on a card the whole
     cast is one launch of K5 (``kernels/raycast_sweep.py``), where
     ``chunk`` (the plain version's memory knob) is not used.
+
+    A mesh that :func:`grid_route` sends to the grid is cast instead by
+    ``gridcast.grid_raycast_grouped`` through ``gridcast.mesh_grid(mesh)``,
+    built at the first such cast and kept with the mesh: the same closest
+    hits but for the order of exact ties and rays on a triangle's edge
+    (the walk tests each ray with its own origin), with work that follows
+    the cells each ray crosses instead of the triangle count.
     """
+    if grid_route(mesh.num_triangles):
+        from .gridcast import grid_raycast_grouped, mesh_grid
+
+        return grid_raycast_grouped(mesh, mesh_grid(mesh), origins, dirs,
+                                    check_mask)
+    return sweep_grouped(mesh, origins, dirs, check_mask, chunk)
+
+
+def sweep_grouped(mesh: Mesh, origins: torch.Tensor, dirs: torch.Tensor,
+                  check_mask: bool = True, chunk: int = 0) -> RayHits:
+    """:func:`raycast_grouped`'s sweep route, whatever the mesh's size:
+    :func:`cast_plain` for CPU tensors, one launch of K5 on a card."""
     from ..kernels.raycast_sweep import raycast_hits
 
     origins = origins.to(torch.float32).reshape(-1, 3).contiguous()

@@ -30,9 +30,11 @@ the device stages' labels: ``refine.data`` (the DB read),
 ``refine.iteration`` (one pass of the LM loop) and ``refine.finish`` (the
 last read and the write-back), so that a trace charges each idle stretch
 of the device to one of them.
-The prim refresh casts on the device, or through the host BVH of
-the port's ``native`` for meshes of ``BVH_TRIANGLE_THRESHOLD`` triangles
-or more.
+The prim refresh casts on the device (``raycast_grouped``, whose route
+the mesh's size picks: K5's sweep, or K6's walk through the mesh's grid),
+or through the host BVH of the port's ``native`` for meshes of
+``BVH_TRIANGLE_THRESHOLD`` triangles or more that the grid route does not
+take on a card (``_bvh_refresh``).
 
 Given several devices, ``refine_trajectory`` takes the reference's
 multi-device path (its ``device_mesh``): the normal equations are built
@@ -86,6 +88,7 @@ from .levmarq import (
 from .pnp import normalize_bundle_opts
 from .raycast import (
     INVALID_ID,
+    grid_route,
     intersect_ray_plane_jac,
     intersect_ray_triangle,
     raycast_grouped,
@@ -350,10 +353,21 @@ def _all_rays(params: TrajParams, data: RefinerData, model_inv):
     return origin_o, dir_o
 
 
+def _bvh_refresh(device_type: str, num_triangles: int) -> bool:
+    """True when the prim refresh of a mesh of ``num_triangles`` on a
+    device of ``device_type`` belongs on the host BVH: from
+    ``BVH_TRIANGLE_THRESHOLD`` triangles, but for a card's mesh that the
+    cast layer sends to the grid (``raycast.grid_route``), which casts a
+    refresh faster on the card than the BVH on the host."""
+    if num_triangles < BVH_TRIANGLE_THRESHOLD:
+        return False
+    return not (device_type == "cuda" and grid_route(num_triangles))
+
+
 def _refresh_routing(mesh: Mesh) -> bool:
-    """True when the prim refresh casts through the host BVH: from
-    ``BVH_TRIANGLE_THRESHOLD`` triangles, where the native library loads."""
-    if mesh.num_triangles < BVH_TRIANGLE_THRESHOLD:
+    """True when the prim refresh casts through the host BVH: where
+    :func:`_bvh_refresh` says so and the native library loads."""
+    if not _bvh_refresh(mesh.vertices.device.type, mesh.num_triangles):
         return False
     from .. import native
 

@@ -2,7 +2,7 @@
 
 Usage, on a machine with a CUDA card, once per checkout to compare:
 
-    python3 polychase_tpu_torch/k6_compare.py ROOT [--teams] [--counts]
+    python3 polychase_tpu_torch/k6_compare.py ROOT [--teams] [--counts] [--k5]
 
 ROOT is the root of a checkout (``.``, or a ``git archive`` of another
 commit unpacked into a directory that ``.gitignore`` lists).  The script
@@ -17,10 +17,12 @@ a device sleep.  The scenes are ``crossover``'s: a tracking frame's rays
 scenes, made the same way from their own seed: 8192 rays into a soup of
 20,000 triangles, and 4096 rays at a UV sphere over a huge ground
 triangle, whose grid (33 × 43 × 1) holds the sphere in a few dense cells
-among many of one candidate.  For each it prints the time and a
-digest of every field of the hits, so that two checkouts can be shown to
-write the same bits; then the registers and spills that ``nvcc`` reported
-for ROOT's kernel.
+among many of one candidate; the same ground under a 179,400-triangle
+sphere (above ``raycast.GRID_TRIANGLE_THRESHOLD``) with 8192 rays, a soup
+of 200,000 in the same box; and the frame on the benchmark's 1,087,716.
+For each it prints the time and a digest of every field of the hits, so
+that two checkouts can be shown to write the same bits; then the
+registers and spills that ``nvcc`` reported for ROOT's kernel.
 
 ``--teams`` also times ROOT's K6 at each team width it has
 (``kernels.grid_cast.TEAMS``, forced through ``_launch``), beside the width
@@ -29,7 +31,9 @@ take, from ROOT's ``grid_plain_counted`` (per-ray counts) on the card: the
 candidate tests and the cell actions through empty and through full cells
 a ray (mean, p99, max), the candidates a non-empty cell of the grid holds
 (mean, p99, max), the grid's entries the walks read, and the bound
-ROOT's ``chip_smoke.k6_bound`` gives.
+ROOT's ``chip_smoke.k6_bound`` gives.  ``--k5`` also times ROOT's K5
+(``kernels.raycast_sweep.raycast_hits``) on each scene's rays as groups
+of one, the sweep's cast of the same rays, with the share of equal ids.
 Run it for two checkouts in turns (A, B, B, A) within one call to compare
 them.
 """
@@ -44,7 +48,7 @@ import time
 from pathlib import Path
 
 REPS = 20
-SPHERES = ((24, 32), (80, 128), (400, 500), (1000, 1000))
+SPHERES = ((24, 32), (80, 128), (400, 500), (564, 966), (1000, 1000))
 
 
 def digest(hits) -> str:
@@ -94,11 +98,25 @@ def scenes(device):
                                       len(hv) - 1]]]))
     ho, hd = from_sphere(4096, 8.0, 0.8)
     hd[:1024] = torch.tensor([0.1, 0.05, -1.0])
+    bv, bt = uv_sphere(300, 300)
+    bv = np.concatenate([bv, [[-50, -50, -2], [50, -50, -2], [0, 80, -2]]])
+    big = (bv, np.concatenate([bt, [[len(bv) - 3, len(bv) - 2,
+                                     len(bv) - 1]]]))
     out = [("soup of 20,000", mesh_of(*soup),
             build_grid_accel(*soup, device=device),
             *from_sphere(8192, 6.0, 1.0), 0.0),
            ("huge triangle", mesh_of(*huge),
             build_grid_accel(*huge, device=device), ho, hd, 0.0)]
+    bo, bd = from_sphere(8192, 8.0, 0.8)
+    bd[:2048] = torch.tensor([0.1, 0.05, -1.0])
+    out.append(("huge triangle under 179,400", mesh_of(*big),
+                build_grid_accel(*big, device=device), bo, bd, 0.0))
+    centers = rng.uniform(-2, 2, (200_000, 1, 3))
+    soup2 = ((centers + rng.normal(0, 0.1, (200_000, 3, 3))).reshape(-1, 3),
+             np.arange(600_000).reshape(-1, 3))
+    out.append(("soup of 200,000", mesh_of(*soup2),
+                build_grid_accel(*soup2, device=device),
+                *from_sphere(8192, 6.0, 1.0), 0.0))
     for sphere in SPHERES:
         verts, tris = uv_sphere(*sphere)
         mesh = Mesh.create(verts, tris, device=device)
@@ -184,6 +202,16 @@ def main() -> None:
                 print(f"    team of {team}"
                       + (" (team_width's)" if team == chosen else "")
                       + f": {ms:.4f} ms", flush=True)
+        if "--k5" in sys.argv[2:]:
+            from polychase_tpu_torch.kernels.raycast_sweep import raycast_hits
+
+            arrays = (mesh.vertices, mesh.triangles, mesh.masked_triangles)
+            d1 = d[:, None, :].contiguous()
+            ms = event_ms(lambda: raycast_hits(o, d1, *arrays), REPS)
+            same = (raycast_hits(o, d1, *arrays).prim_id[:, 0]
+                    == grid_raycast(mesh, accel, o, d).prim_id)
+            print(f"    K5, groups of one: {ms:.4f} ms; ids equal K6's on "
+                  f"{float(same.float().mean()):.5f}", flush=True)
         if "--counts" in sys.argv[2:]:
             counts(label, mesh, accel, o, d)
     for line in build.load("grid_cast.cu").build_log.splitlines():

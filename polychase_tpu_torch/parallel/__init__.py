@@ -24,7 +24,6 @@ the split.
 
 from __future__ import annotations
 
-from dataclasses import fields
 from typing import List, Tuple
 
 import torch
@@ -60,7 +59,17 @@ def shards(S: int, n_devices: int) -> List[Tuple[int, int]]:
 
 
 def mesh_on(mesh: Mesh, device: torch.device) -> Mesh:
-    """``mesh`` with its tensors on ``device``."""
+    """``mesh`` with its tensors on ``device``.  Where its cast takes the
+    grid (``engine.raycast.grid_route``), the grid goes with it: built once
+    on ``mesh`` (``gridcast.mesh_grid``) and copied, never rebuilt on
+    ``device``."""
     if mesh.vertices.device == device:
         return mesh
-    return Mesh(*(getattr(mesh, f.name).to(device) for f in fields(mesh)))
+    from ..engine.gridcast import mesh_grid
+    from ..engine.raycast import grid_route
+
+    grid = (mesh_grid(mesh).to(device) if grid_route(mesh.num_triangles)
+            else None)
+    return Mesh(mesh.vertices.to(device), mesh.triangles.to(device),
+                mesh.masked_triangles.to(device), mesh.bbox_min.to(device),
+                mesh.bbox_max.to(device), grid)

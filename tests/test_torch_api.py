@@ -495,6 +495,59 @@ def test_analyze_and_refine_on_a_device_list(tmp_path, fn):
         segment_trajectories(poses, intr, filled=True)[0])).max() > 1e-4
 
 
+def test_grid_built_once_an_accelerated_mesh(tmp_path, monkeypatch):
+    """With the grid route taken (its threshold lowered to the 352-triangle
+    sphere): two ``track_sequence`` and two ``refine_trajectory`` calls
+    through one ``AcceleratedMesh`` build the grid once, and a refine split
+    over two devices builds none; a mask change makes a new engine mesh
+    that keeps the grid; ``inner_mut`` drops it, and the next cast builds
+    it again."""
+    from polychase_tpu_torch.engine import gridcast, raycast
+
+    monkeypatch.setattr(raycast, "GRID_TRIANGLE_THRESHOLD", 1)
+    db = str(tmp_path / "flow.db")
+    v, t, poses, intr = segment_scene(db)
+    view = np.eye(4, dtype=np.float32)
+    view[:3, :3] = quat_to_mat_np(poses[0][0])
+    view[:3, 3] = poses[0][1]
+    scene = pc.SceneTransformations(np.eye(4, dtype=np.float32), view, intr)
+    opts = pc.BundleOptions()
+    opts.max_iterations = 4
+    mesh = pc.AcceleratedMesh(v, t)
+    cpu = torch.device(CPU)
+
+    def track():
+        got = []
+        pc.track_sequence(db, 0, 5, scene, mesh,
+                          lambda r: got.append(r.frame) or True, device=CPU)
+        assert got == list(range(1, 6))
+
+    def refine(device=CPU):
+        traj = segment_trajectories(poses, intr, filled=True)[0]
+        pc.refine_trajectory(db, traj, np.eye(4), mesh, False, False, None,
+                             opts, device=device)
+
+    before = gridcast.builds
+    for _ in range(2):
+        track()
+        refine()
+    refine([CPU, CPU])
+    assert gridcast.builds == before + 1
+    first = mesh._to_engine(cpu)
+    assert first.grid is not None
+    mesh.inner().mask_triangle(3)
+    masked = mesh._to_engine(cpu)
+    assert masked is not first and masked.grid is first.grid
+    assert masked.to_numpy_mask()[0] == 1 << 3
+    track()
+    refine()
+    assert gridcast.builds == before + 1
+    mesh.inner_mut()
+    assert mesh._to_engine(cpu).grid is None
+    track()
+    assert gridcast.builds == before + 2
+
+
 # ---------------------------------------------------------------------------
 # The extensions: device_count and the segment-parallel paths
 # ---------------------------------------------------------------------------

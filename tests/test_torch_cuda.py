@@ -451,16 +451,17 @@ def test_pin_device_route_launches_k1(card, monkeypatch):
                                host.view_matrix.numpy(), atol=1e-4)
 
 
-def _segment_clip(dev, tmp_path, n=18):
-    """An ``n``-frame 1080p orbit of a 24×32 sphere with 512 keypoints a
-    frame, and the facade's pieces to track or refine it."""
+def _segment_clip(dev, tmp_path, n=18, sphere=(24, 32)):
+    """An ``n``-frame 1080p orbit of a UV sphere (24×32 unless given) with
+    512 keypoints a frame, and the facade's pieces to track or refine
+    it."""
     import polychase_tpu_torch.polychase_core as pc
     from polychase_tpu_torch.engine.geometry import Mesh
     from polychase_tpu_torch.synthetic import (
         build_flow_db, orbit_poses, uv_sphere,
     )
 
-    verts, tris = uv_sphere(24, 32)
+    verts, tris = uv_sphere(*sphere)
     poses = orbit_poses(n)
     db = str(tmp_path / "flow.db")
     build_flow_db(db, Mesh.create(verts, tris, device=dev), 1800.0, 1920,
@@ -1135,6 +1136,7 @@ def test_raycast_grouped_launches_k5(card):
     from raycast_before import raycast_grouped_before
 
     mesh, o, d = _k5_scene(card, "masked", 250, 128)
+    assert not R.grid_route(mesh.num_triangles)  # K5's route
     R.raycast_grouped(mesh, o, d)  # builds and loads the library
     torch.cuda.synchronize()
     before = (RS.launches, RS.cuda_launches())
@@ -1330,6 +1332,81 @@ def test_grid_raycast_grouped_launches_k6(card):
     for f in ("pos", "normal", "barycentric", "t", "prim_id", "valid"):
         assert torch.equal(getattr(grouped, f).reshape(getattr(flat, f).shape),
                            getattr(flat, f)), f
+
+
+# A UV sphere above ``raycast.GRID_TRIANGLE_THRESHOLD``: 179,400 triangles.
+ROUTE_SPHERE = (300, 300)
+
+
+def test_grouped_cast_above_the_threshold_takes_k6(card):
+    """On the card, ``raycast_grouped`` on a mesh above the threshold (a
+    tracking frame's 4 × 2048 rays) builds the mesh's grid at its first
+    cast only, then launches K6 once a cast and K5 never (no
+    ``hits_kernel`` among the kernels the profiler saw); every field of
+    its hits equals ``grid_plain``'s on the card to the bit."""
+    from polychase_tpu_torch.engine import gridcast as GC
+    from polychase_tpu_torch.engine import raycast as R
+    from polychase_tpu_torch.engine.geometry import Mesh
+    from polychase_tpu_torch.kernels import raycast_sweep as RS
+    from polychase_tpu_torch.synthetic import uv_sphere
+
+    mesh = Mesh.create(*uv_sphere(*ROUTE_SPHERE), device=card)
+    assert R.grid_route(mesh.num_triangles)
+    rng = np.random.default_rng(3)
+    o = rng.normal(size=(4, 3))
+    o = 4 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = rng.normal(0, 0.7, (4, 2048, 3)) - o[:, None]
+    origins = torch.as_tensor(o.astype(np.float32), device=card)
+    dirs = torch.as_tensor(d.astype(np.float32), device=card)
+    builds = GC.builds
+    R.raycast_grouped(mesh, origins, dirs)  # builds the grid, loads K6
+    torch.cuda.synchronize()
+    assert GC.builds == builds + 1
+    before = (grid_cast.launches, grid_cast.cuda_launches(), RS.launches)
+    _, ran, got = _device_work(lambda: R.raycast_grouped(mesh, origins,
+                                                          dirs))
+    assert (grid_cast.launches, grid_cast.cuda_launches(), RS.launches) == (
+        before[0] + 2, before[1] + 2, before[2])  # device_work calls twice
+    assert GC.builds == builds + 1
+    # The profiler may miss a kernel in a window this short; the libraries'
+    # counts above are the check, this one what it saw.
+    assert not [n for n, _ in ran if "hits_kernel" in n], ran
+    want = GC.grid_plain(origins[:, None].expand(4, 2048, 3).reshape(-1, 3),
+                         dirs.reshape(-1, 3), mesh.grid, mesh.vertices,
+                         mesh.triangles, mesh.masked_triangles)
+    for f in ("pos", "normal", "barycentric", "t", "prim_id", "valid"):
+        assert torch.equal(getattr(got, f).reshape(getattr(want, f).shape),
+                           getattr(want, f)), f
+    assert got.valid.float().mean() > 0.2
+
+
+def test_tracking_above_the_threshold_launches_k6(card, tmp_path):
+    """Tracking on a mesh above the threshold, twice through one
+    ``AcceleratedMesh``: each frame step one launch of K6 and of K1 and
+    none of K5, the grid built once; the poses within 5e-3 of the
+    truth."""
+    from polychase_tpu_torch.engine import gridcast as GC
+    from polychase_tpu_torch.kernels import raycast_sweep as RS
+
+    pc, db, mesh, poses, _ = _segment_clip(card, tmp_path, n=8,
+                                           sphere=ROUTE_SPHERE)
+    view = np.eye(4, dtype=np.float32)
+    view[:3, :3] = quat_to_mat_np(poses[0][0])
+    view[:3, 3] = poses[0][1]
+    scene = pc.SceneTransformations(np.eye(4), view, pc.CameraIntrinsics(
+        1800, 1800, 960, 540, 1, 1920, 1080, pc.CameraConvention.OpenCV))
+    builds = GC.builds
+    for _ in range(2):
+        before = (pnp_lm.launches, grid_cast.launches, RS.launches)
+        got = []
+        pc.track_sequence(db, 0, 7, scene, mesh,
+                          lambda r: got.append(r) or True)
+        assert (pnp_lm.launches, grid_cast.launches, RS.launches) == (
+            before[0] + 7, before[1] + 7, before[2])
+        assert [r.frame for r in got] == list(range(1, 8))
+        for r in got:
+            assert np.linalg.norm(r.pose.t - poses[r.frame][1]) < 5e-3
+    assert GC.builds == builds + 1
 
 
 def test_grid_cast_launches_on_its_tensors_card(card):

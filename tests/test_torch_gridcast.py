@@ -666,3 +666,172 @@ def test_team_walk_matches_grid_plain(kind, team, max_iters, block):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     if kind != "empty" and max_iters > 6:
         assert bool(want.valid.any())
+
+
+# ---------------------------------------------------------------------------
+# The route of the grouped cast (``raycast.grid_route``) and the grid kept
+# with the mesh (``gridcast.mesh_grid``); tests lower the threshold on toy
+# meshes, the program never does.
+# ---------------------------------------------------------------------------
+
+
+def _route_scene(kind, seed=7):
+    """A 24×32 sphere (1,472 triangles; 40 of them masked for "masked",
+    every triangle twice for "twice") and 4 groups of 96 rays at it."""
+    jm = make_sphere_mesh(24, 32)
+    verts, tris = np.asarray(jm.vertices), np.asarray(jm.triangles)
+    words = None
+    rng = np.random.default_rng(seed)
+    if kind == "masked":
+        words = np.asarray(jm.masked_triangles)
+        for i in rng.choice(len(tris), 40, replace=False):
+            words = set_mask_bits(words, int(i), "mask")
+    if kind == "twice":
+        tris = np.concatenate([tris, tris])
+    from polychase_tpu_torch.engine.geometry import Mesh
+
+    mesh = Mesh.create(verts, tris, words, device="cpu")
+    origins = rng.normal(size=(4, 3))
+    origins = 4.0 * origins / np.linalg.norm(origins, axis=-1, keepdims=True)
+    dirs = rng.normal(0, 0.6, (4, 96, 3)) - origins[:, None, :]
+    return (mesh, torch.as_tensor(origins.astype(np.float32)),
+            torch.as_tensor(dirs.astype(np.float32)))
+
+
+def _plain(mesh, o, d):
+    from polychase_tpu_torch.engine.raycast import cast_plain
+
+    return cast_plain(o, d, mesh.vertices, mesh.triangles,
+                      mesh.masked_triangles)
+
+
+@pytest.mark.parametrize("kind", ["sphere", "masked", "twice"])
+def test_grouped_cast_above_the_threshold_takes_the_grid(kind, monkeypatch):
+    """From ``GRID_TRIANGLE_THRESHOLD`` triangles ``raycast_grouped`` is
+    ``grid_raycast_grouped`` through the mesh's grid, field for field; its
+    ids are the sweep's (``cast_plain``) on every ray but those whose two
+    t's lie within float eps of each other (an exact tie or an edge), and
+    the grid is built at the first cast only."""
+    from polychase_tpu_torch.engine import raycast as R
+
+    mesh, o, d = _route_scene(kind)
+    monkeypatch.setattr(R, "GRID_TRIANGLE_THRESHOLD", mesh.num_triangles)
+    assert R.grid_route(mesh.num_triangles)
+    before = G.builds
+    got = R.raycast_grouped(mesh, o, d)
+    assert G.builds == before + 1 and mesh.grid is not None
+    accel = G.build_grid_accel(mesh.vertices, mesh.triangles, device="cpu")
+    want = G.grid_raycast_grouped(mesh, accel, o, d)
+    for f in HIT_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    again = R.raycast_grouped(mesh, o, d)
+    assert G.builds == before + 2  # the direct build above, no other
+    assert torch.equal(again.prim_id, got.prim_id)
+    sweep = _plain(mesh, o, d)
+    assert torch.equal(got.valid, sweep.valid) and bool(got.valid.any())
+    eps = torch.finfo(torch.float32).eps
+    apart = (got.t - sweep.t).abs() > eps * sweep.t.abs().clamp_min(1.0)
+    assert torch.equal(got.prim_id[apart], sweep.prim_id[apart])
+    assert float((got.prim_id == sweep.prim_id).float().mean()) > 0.99
+    if kind == "masked":
+        assert not bool(got.valid.all())
+
+
+@pytest.mark.parametrize("kind", ["sphere", "masked", "twice"])
+def test_grouped_cast_below_the_threshold_is_the_sweep(kind, monkeypatch):
+    """Below the threshold ``raycast_grouped`` is ``cast_plain`` to the
+    bit and builds no grid, at the program's threshold and one count
+    above the mesh's."""
+    from polychase_tpu_torch.engine import raycast as R
+
+    mesh, o, d = _route_scene(kind)
+    want = _plain(mesh, o, d)
+    before = G.builds
+    for threshold in (R.GRID_TRIANGLE_THRESHOLD, mesh.num_triangles + 1):
+        monkeypatch.setattr(R, "GRID_TRIANGLE_THRESHOLD", threshold)
+        assert not R.grid_route(mesh.num_triangles)
+        got = R.raycast_grouped(mesh, o, d)
+        for f in HIT_FIELDS:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert G.builds == before and mesh.grid is None
+
+
+def test_grid_route_stops_at_the_builds_limit(monkeypatch):
+    """A mesh of 2**23 triangles or more, which the grid build refuses,
+    keeps the sweep: the rule on counts, and a cast whose mesh reports
+    2**23 triangles (a patched count, not such a mesh) is the sweep's."""
+    from polychase_tpu_torch.engine import raycast as R
+    from polychase_tpu_torch.engine.geometry import Mesh
+
+    monkeypatch.setattr(R, "GRID_TRIANGLE_THRESHOLD", 1)
+    assert R.GRID_TRIANGLE_LIMIT == 1 << 23
+    assert [R.grid_route(n) for n in (0, 1, (1 << 23) - 1, 1 << 23,
+                                      1 << 24)] == [
+        False, True, True, False, False]
+    mesh, o, d = _route_scene("sphere")
+    want = _plain(mesh, o, d)
+    monkeypatch.setattr(Mesh, "num_triangles", property(lambda m: 1 << 23))
+    before = G.builds
+    got = R.raycast_grouped(mesh, o, d)
+    for f in HIT_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert G.builds == before
+
+
+def test_mesh_grid_is_built_once_and_spanned():
+    """``mesh_grid`` builds the grid at its first call, on the mesh's
+    device, inside one ``mesh.grid_build`` span, and hands the same grid
+    back after; the build is the direct build's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mesh, _, _ = _route_scene("sphere")
+    before = G.builds
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        grid = G.mesh_grid(mesh)
+        assert G.mesh_grid(mesh) is grid and mesh.grid is grid
+    assert G.builds == before + 1
+    spans = [e for e in prof.events() if e.name == "mesh.grid_build"]
+    assert len(spans) == 1
+    want = G.build_grid_accel(mesh.vertices, mesh.triangles, device="cpu")
+    for f in ("cell_start", "items", "tri_rows", "lo", "h", "res"):
+        assert torch.equal(getattr(grid, f), getattr(want, f)), f
+    assert grid.cell_load == want.cell_load
+
+
+def test_mesh_on_carries_the_grid(monkeypatch):
+    """``parallel.mesh_on`` copies a mesh that the grid route takes with
+    its grid, built once on the source and never on the copy's device
+    (the ``meta`` device stands in for a second card); a mesh below the
+    threshold goes without one."""
+    from polychase_tpu_torch.engine import raycast as R
+    from polychase_tpu_torch.parallel import mesh_on
+
+    meta = torch.device("meta")
+    mesh, _, _ = _route_scene("sphere")
+    before = G.builds
+    assert mesh_on(mesh, meta).grid is None and G.builds == before
+    monkeypatch.setattr(R, "GRID_TRIANGLE_THRESHOLD", 1)
+    copies = [mesh_on(mesh, meta) for _ in range(2)]
+    assert G.builds == before + 1 and mesh.grid is not None
+    for copy in copies:
+        assert copy.grid.items.device == meta
+        assert copy.grid.items.shape == mesh.grid.items.shape
+        assert copy.grid.cell_load == mesh.grid.cell_load
+    assert mesh_on(mesh, torch.device("cpu")) is mesh
+
+
+@pytest.mark.parametrize("device_type,count,bvh", [
+    ("cuda", 1_000, False), ("cpu", 1_000, False),
+    ("cuda", 1_600_000, False), ("cuda", 1_998_000, False),
+    ("cuda", (1 << 23) - 1, False), ("cuda", 1 << 23, True),
+    ("cpu", 1_600_000, True), ("cpu", 1_998_000, True), ("cpu", 1 << 23, True),
+])
+def test_refresh_takes_the_bvh_only_off_the_grid_route(device_type, count,
+                                                       bvh):
+    """Refine's prim refresh routing as a function of (device type, count):
+    a card's mesh that the cast layer sends to the grid is never sent to
+    the host BVH; a CPU mesh from ``BVH_TRIANGLE_THRESHOLD`` up and a
+    card's of 2**23 triangles or more are."""
+    from polychase_tpu_torch.engine import refiner as TR
+
+    assert TR._bvh_refresh(device_type, count) is bvh
